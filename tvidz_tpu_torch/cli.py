@@ -1,0 +1,173 @@
+"""tvidz_tpu_torch command-line interface.
+
+    python -m tvidz_tpu_torch analyze video.y4m --db sqlite:///corpus.db
+    python -m tvidz_tpu_torch ingest videos/ --db sqlite:///corpus.db
+    python -m tvidz_tpu_torch fingerprint video.y4m -o fp.npz
+
+The same commands and JSON output as ``tvidz_tpu/cli.py``, plus
+``--device`` (default ``$TVIDZ_TORCH_DEVICE``, else ``cuda``; ``cpu`` runs
+the kernels' plain PyTorch versions). ``search``, ``serve`` and ``bench``
+come with later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+
+
+def _local_session(db_url: str, device=None):
+    """(analyzer, store, corpus) wired for local files: the 'bucket' is the
+    filesystem and keys are paths."""
+    from tvidz_tpu_torch._reference import AnalysisRegistry, Config, Store
+    from tvidz_tpu_torch.corpus.device_corpus import DeviceCorpus
+    from tvidz_tpu_torch.pipeline.analyzer import Analyzer
+
+    config = Config()
+    store = Store(db_url)
+    corpus = DeviceCorpus(
+        max_cuts=config.match.max_cuts,
+        words=config.hash.words,
+        hamming_threshold=config.match.hamming_threshold,
+        device=device,
+    )
+    corpus.load(store)
+
+    def fetcher(bucket: str, key: str, local_path: str) -> None:
+        src = os.path.join(bucket, key) if bucket else key
+        if not os.path.exists(src):
+            raise FileNotFoundError(src)
+        shutil.copy(src, local_path)
+
+    return Analyzer(store, corpus, AnalysisRegistry(), fetcher, config), store, corpus
+
+
+def _analyze_once(analyzer, directory: str, name: str):
+    """One analysis; a store down for the whole run becomes the
+    reference-parity error result (the CLI has no retry loop)."""
+    from tvidz_tpu_torch.pipeline.analyzer import (
+        AnalysisResult,
+        TransientAnalysisError,
+    )
+
+    try:
+        return analyzer.analyze(directory, name)
+    except TransientAnalysisError as e:
+        return AnalysisResult(
+            analysis_key=e.analysis_key,
+            video_id=e.video_id if e.video_id is not None else -1,
+            status="error", scene_cuts=[], duplicates=[], error=str(e),
+        )
+
+
+def cmd_analyze(args) -> int:
+    analyzer, store, corpus = _local_session(args.db, args.device)
+    path = os.path.abspath(args.video)
+    result = _analyze_once(analyzer, os.path.dirname(path),
+                           os.path.basename(path))
+    out = {
+        "file": args.video,
+        "status": result.status,
+        "video_id": result.video_id,
+        "scene_cuts": result.scene_cuts,
+        "duplicates": result.duplicates,
+    }
+    if result.error:
+        out["error"] = result.error
+    fps = store.get_fingerprints(result.video_id)
+    out["fingerprinted_frames"] = int(fps.shape[0]) if fps is not None else 0
+    print(json.dumps(out, indent=None if args.compact else 2))
+    return 0 if result.status == "done" else 1
+
+
+def cmd_fingerprint(args) -> int:
+    import numpy as np
+
+    from tvidz_tpu_torch._reference import Config, get_decoder
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+
+    config = Config()
+    model = FingerprintModel(config, device=args.device)
+    info = get_decoder(args.video).probe(args.video)
+    cuts, fps = model.analyze_path(args.video)
+    if args.output:
+        np.savez(args.output, fingerprints=fps,
+                 scene_cuts=np.asarray(cuts, np.float64))
+    print(json.dumps({
+        "file": args.video,
+        "frames": int(fps.shape[0]),
+        "fps": info.fps,
+        "algorithm": config.hash.algorithm,
+        "scene_cuts": cuts,
+        "output": args.output,
+    }))
+    return 0
+
+
+def cmd_ingest(args) -> int:
+    """Batch-build a corpus from a directory of videos."""
+    analyzer, store, corpus = _local_session(args.db, args.device)
+    exts = tuple(e.strip().lstrip(".") for e in args.ext.split(","))
+    files = sorted(
+        f for f in os.listdir(args.directory)
+        if f.lower().endswith(tuple("." + e for e in exts))
+    )
+    results = []
+    for name in files:
+        res = _analyze_once(analyzer, args.directory, name)
+        results.append({
+            "file": name,
+            "status": res.status,
+            "cuts": len(res.scene_cuts),
+            "duplicates": res.duplicates,
+            **({"error": res.error} if res.error else {}),
+        })
+        print(json.dumps(results[-1]), flush=True)
+    done = sum(1 for r in results if r["status"] == "done")
+    print(json.dumps({
+        "ingested": done, "failed": len(results) - done,
+        "corpus_videos": corpus.num_videos,
+        "corpus_fingerprints": corpus.num_fingerprints,
+    }))
+    return 0 if done == len(results) else 1
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="tvidz_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    def add_device(p):
+        p.add_argument("--device", default=None,
+                       help="cuda (default, or $TVIDZ_TORCH_DEVICE) or cpu")
+
+    p = sub.add_parser("analyze", help="analyze a local video against the corpus")
+    p.add_argument("video")
+    p.add_argument("--db", default="sqlite:///tvidz.db")
+    p.add_argument("--compact", action="store_true")
+    add_device(p)
+
+    p = sub.add_parser("fingerprint", help="compute cuts + fingerprints only")
+    p.add_argument("video")
+    p.add_argument("-o", "--output", default=None, help=".npz output path")
+    add_device(p)
+
+    p = sub.add_parser("ingest", help="batch-analyze a directory into the corpus")
+    p.add_argument("directory")
+    p.add_argument("--db", default="sqlite:///tvidz.db")
+    p.add_argument("--ext", default="mp4,avi,mkv,mov,mpg,y4m",
+                   help="comma-separated extensions to ingest")
+    add_device(p)
+
+    args = parser.parse_args(argv)
+    if args.cmd == "analyze":
+        return cmd_analyze(args)
+    if args.cmd == "fingerprint":
+        return cmd_fingerprint(args)
+    return cmd_ingest(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,518 @@
+"""On-device fingerprint and timestamp corpus, on PyTorch.
+
+Port of ``tvidz_tpu/corpus/device_corpus.py``. The host mirrors are the
+source of truth and are kept exactly as in the reference (same arrays,
+capacities, tombstones, free lists and compaction), so both packages hold
+identical state after the same updates. Device tensors sync lazily before
+each query — incrementally (dirty rows, appended rows) while the capacity
+is unchanged, in full after growth or compaction:
+
+- timestamps: (cap, MAX_CUTS) float32 NaN-padded + (cap,) int32 lengths,
+  queried with ops/timestamps.timestamp_match_counts;
+- fingerprints: (cap, W) int32 bit-views of the host's uint32 rows,
+  sentinel-padded, queried with the corpus scan (kernel K2 on CUDA). The
+  reference's word-major (W, N) layout served TPU lanes; K2 reads rows.
+
+The alignment (fragment-search) buckets keep their host mirror; their
+device sync and ``locate_fragment`` wait for the fragment kernel (ROADMAP
+queue B).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tvidz_tpu_torch import backend
+from tvidz_tpu_torch._reference import log
+from tvidz_tpu_torch.ops.hamming import corpus_frame_min, corpus_query_nearest
+from tvidz_tpu_torch.ops.timestamps import timestamp_match_counts
+
+_FP_SENTINEL = np.uint32(0xFFFFFFFF)
+
+_AL_T0 = 256  # frame capacity of alignment bucket 0; bucket b holds T0<<b
+
+
+class _AlignBucket:
+    """One (vcap, tcap, words) tier of the bucketed alignment index (host
+    mirror only in this slice; tvidz_tpu/corpus/device_corpus.py:120)."""
+
+    def __init__(self, tcap: int, vcap: int, words: int):
+        self.tcap = tcap
+        self.vcap = vcap
+        self.buf = np.full((vcap, tcap, words), _FP_SENTINEL, np.uint32)
+        self.len = np.zeros(vcap, np.int32)
+        self.vid = np.full(vcap, -1, np.int32)
+        self.count = 0              # rows ever claimed (incl. tombstones)
+        self.dirty: set = set()
+        self.full_resync = True
+        self.free: List[int] = []   # tombstoned rows for reuse
+
+    def grow(self, min_vcap: Optional[int] = None) -> None:
+        """Double vcap until >= min_vcap (one doubling when None) in ONE
+        allocation."""
+        new_vcap = self.vcap * 2
+        while min_vcap is not None and new_vcap < min_vcap:
+            new_vcap *= 2
+        buf = np.full((new_vcap, self.tcap, self.buf.shape[2]), _FP_SENTINEL,
+                      np.uint32)
+        buf[: self.vcap] = self.buf
+        ln = np.zeros(new_vcap, np.int32)
+        ln[: self.vcap] = self.len
+        vid = np.full(new_vcap, -1, np.int32)
+        vid[: self.vcap] = self.vid
+        self.buf, self.len, self.vid = buf, ln, vid
+        self.vcap = new_vcap
+        self.full_resync = True
+
+
+class DeviceCorpus:
+    """Single-GPU device corpus (the sharded variants are ROADMAP slice 3)."""
+
+    def __init__(
+        self,
+        max_cuts: int = 128,
+        words: int = 2,
+        hamming_threshold: int = 10,
+        ts_initial_capacity: int = 256,
+        fp_initial_capacity: int = 4096,
+        fp_block_n: int = 2048,
+        device=None,
+    ):
+        self.device = backend.resolve_device(device)
+        self.max_cuts = max_cuts
+        self.words = words
+        self.hamming_threshold = hamming_threshold
+        # Capacities follow the reference's block multiple, so the scanned
+        # row count (the whole capacity, sentinels included) is the same.
+        self._fp_block_n = max(128, -(-fp_block_n // 128) * 128)
+        self._ts_initial_capacity = ts_initial_capacity
+        self._fp_initial_capacity = (
+            -(-fp_initial_capacity // self._fp_block_n) * self._fp_block_n
+        )
+        self._lock = threading.RLock()
+        self._init_state()
+
+    def _init_state(self) -> None:
+        """(Re)initialize all corpus content. Callers hold self._lock (or
+        are __init__)."""
+        self._ts_cap = self._ts_initial_capacity
+        self._ts = np.full((self._ts_cap, self.max_cuts), np.nan, np.float32)
+        self._ts_len = np.zeros(self._ts_cap, np.int32)
+        self._ts_vid = np.full(self._ts_cap, -1, np.int32)
+        self._vid_to_row: Dict[int, int] = {}
+        self._ts_count = 0          # rows ever claimed (high-water mark)
+        self._ts_free: List[int] = []
+        self._ts_dev: Optional[torch.Tensor] = None
+        self._ts_len_dev: Optional[torch.Tensor] = None
+        self._ts_dirty_rows: List[int] = []
+        self._ts_full_resync = True
+
+        self._fp_cap = self._fp_initial_capacity
+        self._fp = np.full((self._fp_cap, self.words), _FP_SENTINEL, np.uint32)
+        self._fp_vid = np.full(self._fp_cap, -1, np.int32)
+        self._fp_count = 0
+        self._fp_dev: Optional[torch.Tensor] = None
+        self._fp_synced_count = 0
+        self._fp_full_resync = True
+        self._fp_dirty_cols: List[int] = []
+        self._fp_tombstones = 0
+        self.sync_bytes = {"ts": 0, "fp": 0, "al": 0}
+
+        self._al_buckets: List[Optional[_AlignBucket]] = []
+        self._al_row: Dict[int, Tuple[int, int]] = {}  # vid -> (bucket, row)
+
+    def reset(self) -> None:
+        """Drop all corpus content, keeping configuration and the lock."""
+        with self._lock:
+            self._init_state()
+
+    # -- properties -----------------------------------------------------------
+
+    @property
+    def num_videos(self) -> int:
+        """Live videos (tombstoned rows excluded)."""
+        return len(self._vid_to_row)
+
+    @property
+    def num_fingerprints(self) -> int:
+        return self._fp_count
+
+    @property
+    def device_footprint(self) -> dict:
+        """Allocated capacities and row accounting per index (the churn
+        observable: every *_capacity stays bounded by the live high-water
+        mark under upload/re-upload/remove cycles)."""
+        with self._lock:
+            buckets = [bu for bu in self._al_buckets if bu is not None]
+            return {
+                "ts_capacity_rows": self._ts_cap,
+                "ts_rows": self._ts_count,
+                "ts_free_rows": len(self._ts_free),
+                "fp_capacity_rows": self._fp_cap,
+                "fp_rows": self._fp_count,
+                "fp_tombstones": self._fp_tombstones,
+                "al_capacity_bytes": sum(
+                    bu.buf.nbytes + bu.len.nbytes for bu in buckets),
+                "al_claimed_rows": sum(bu.count for bu in buckets),
+                "al_free_rows": sum(len(bu.free) for bu in buckets),
+                "sync_bytes": dict(self.sync_bytes),
+            }
+
+    # -- load / update ----------------------------------------------------------
+
+    def load(self, store) -> None:
+        """Bulk-load timestamps + fingerprints from a corpus Store, presizing
+        every index once. Fingerprint rows of another word width are skipped
+        with a warning (they stay in the store)."""
+        with self._lock:
+            ts_rows = store.all_timestamps()
+            fp_rows = store.all_fingerprints()
+            good = [(v, f) for v, f in fp_rows
+                    if f.ndim == 2 and f.shape[1] == self.words]
+            skipped = len(fp_rows) - len(good)
+            if ts_rows and self._ts_count + len(ts_rows) > self._ts_cap:
+                self._grow_ts(min_cap=self._ts_count + len(ts_rows))
+            total_fp = sum(f.shape[0] for _, f in good)
+            if total_fp and self._fp_count + total_fp > self._fp_cap:
+                self._grow_fp(min_cap=self._fp_count + total_fp)
+            per_bucket: Dict[int, int] = {}
+            for _, f in good:
+                b = self._al_bucket_for(f.shape[0])
+                per_bucket[b] = per_bucket.get(b, 0) + 1
+            for b, n in per_bucket.items():
+                bu = self._al_ensure_bucket(b)
+                need = bu.count + max(0, n - len(bu.free))
+                if need > bu.vcap:
+                    bu.grow(min_vcap=need)
+            for video_id, ts in ts_rows:
+                self._upsert_ts_locked(video_id, ts)
+            for video_id, fps in good:
+                self._append_fp_locked(video_id, fps)
+            if skipped:
+                log("corpus",
+                    f"skipped {skipped} stored fingerprint rows with word "
+                    f"width != {self.words} (hash algorithm changed?)")
+
+    def remove_video(self, video_id: int) -> None:
+        """Tombstone every trace of a video: timestamp row (len 0, vid -1),
+        fingerprint rows (sentinel bits + vid -1) and its alignment row.
+        The sentinel overwrite matters: the scan's argmin is taken before
+        the vid >= 0 filter, so a tombstoned row left at distance 0 would
+        absorb the argmin and shadow an equally near live duplicate."""
+        with self._lock:
+            row = self._vid_to_row.pop(video_id, None)
+            if row is not None:
+                self._ts[row, :] = np.nan
+                self._ts_len[row] = 0
+                self._ts_vid[row] = -1
+                self._ts_dirty_rows.append(row)
+                self._ts_free.append(row)
+            frames = np.nonzero(
+                self._fp_vid[: self._fp_count] == video_id)[0]
+            if frames.size:
+                self._fp_vid[frames] = -1
+                self._fp[frames] = _FP_SENTINEL
+                self._fp_dirty_cols.extend(int(f) for f in frames)
+                self._fp_tombstones += int(frames.size)
+                self._maybe_compact_fp_locked()
+            loc = self._al_row.pop(video_id, None)
+            if loc is not None:
+                b, r = loc
+                bu = self._al_buckets[b]
+                bu.buf[r] = _FP_SENTINEL
+                bu.len[r] = 0
+                bu.vid[r] = -1
+                bu.dirty.add(r)
+                bu.free.append(r)
+
+    def upsert_timestamps(self, video_id: int, timestamps: Sequence[float]) -> None:
+        with self._lock:
+            self._upsert_ts_locked(video_id, timestamps)
+
+    def _upsert_ts_locked(self, video_id: int, timestamps: Sequence[float]) -> None:
+        row = self._vid_to_row.get(video_id)
+        if row is None:
+            if self._ts_free:
+                row = self._ts_free.pop()
+            else:
+                if self._ts_count == self._ts_cap:
+                    self._grow_ts()
+                row = self._ts_count
+                self._ts_count += 1
+            self._vid_to_row[video_id] = row
+            self._ts_vid[row] = video_id
+        ts = np.asarray(list(timestamps)[: self.max_cuts], np.float32)
+        self._ts[row, :] = np.nan
+        self._ts[row, : len(ts)] = ts
+        self._ts_len[row] = len(ts)
+        self._ts_dirty_rows.append(row)
+
+    def _grow_ts(self, min_cap: Optional[int] = None) -> None:
+        new_cap = self._ts_cap * 2
+        while min_cap is not None and new_cap < min_cap:
+            new_cap *= 2
+        ts = np.full((new_cap, self.max_cuts), np.nan, np.float32)
+        ts[: self._ts_count] = self._ts[: self._ts_count]
+        ln = np.zeros(new_cap, np.int32)
+        ln[: self._ts_count] = self._ts_len[: self._ts_count]
+        vid = np.full(new_cap, -1, np.int32)
+        vid[: self._ts_count] = self._ts_vid[: self._ts_count]
+        self._ts, self._ts_len, self._ts_vid = ts, ln, vid
+        self._ts_cap = new_cap
+        self._ts_full_resync = True
+
+    def append_fingerprints(self, video_id: int, fingerprints: np.ndarray) -> None:
+        with self._lock:
+            self._append_fp_locked(video_id, fingerprints)
+
+    def _append_fp_locked(self, video_id: int, fingerprints: np.ndarray) -> None:
+        fp = np.ascontiguousarray(fingerprints, np.uint32)
+        if fp.ndim != 2 or fp.shape[1] != self.words:
+            raise ValueError(
+                f"fingerprint width {fp.shape} incompatible with corpus "
+                f"words={self.words} (hash algorithm mismatch?)"
+            )
+        t = fp.shape[0]
+        if self._fp_count + t > self._fp_cap:
+            self._grow_fp(min_cap=self._fp_count + t)
+        self._fp[self._fp_count : self._fp_count + t] = fp
+        self._fp_vid[self._fp_count : self._fp_count + t] = video_id
+        self._fp_count += t
+        self._append_al_locked(video_id, fp)
+
+    def _al_bucket_for(self, need: int) -> int:
+        b = 0
+        while (_AL_T0 << b) < need:
+            b += 1
+        return b
+
+    def _al_ensure_bucket(self, b: int) -> _AlignBucket:
+        while len(self._al_buckets) <= b:
+            self._al_buckets.append(None)
+        if self._al_buckets[b] is None:
+            self._al_buckets[b] = _AlignBucket(_AL_T0 << b, 64, self.words)
+        return self._al_buckets[b]
+
+    def _append_al_locked(self, video_id: int, fp: np.ndarray) -> None:
+        """Extend the video's row in the alignment index; a row that
+        outgrows its bucket migrates to the next one and the old row is
+        tombstoned onto the bucket's free list."""
+        loc = self._al_row.get(video_id)
+        if loc is not None:
+            b0, r0 = loc
+            bu = self._al_buckets[b0]
+            cur = int(bu.len[r0])
+            need = cur + fp.shape[0]
+            if need <= bu.tcap:
+                bu.buf[r0, cur:need] = fp
+                bu.len[r0] = need
+                bu.dirty.add(r0)
+                return
+            seq = np.concatenate([bu.buf[r0, :cur], fp])
+            bu.buf[r0] = _FP_SENTINEL
+            bu.len[r0] = 0
+            bu.vid[r0] = -1
+            bu.dirty.add(r0)
+            bu.free.append(r0)
+        else:
+            seq = np.ascontiguousarray(fp)
+        need = seq.shape[0]
+        b = self._al_bucket_for(need)
+        bu = self._al_ensure_bucket(b)
+        if bu.free:
+            row = bu.free.pop()
+        else:
+            if bu.count == bu.vcap:
+                bu.grow()
+            row = bu.count
+            bu.count += 1
+        bu.buf[row, :need] = seq
+        bu.len[row] = need
+        bu.vid[row] = video_id
+        bu.dirty.add(row)
+        self._al_row[video_id] = (b, row)
+
+    def _maybe_compact_fp_locked(self) -> None:
+        """Reclaim tombstoned fingerprint rows once they exceed half the
+        used range (and at least 1024): host-side compaction, then a full
+        device resync — amortized O(1) per removed row."""
+        if (self._fp_tombstones < 1024
+                or self._fp_tombstones * 2 < self._fp_count):
+            return
+        keep = np.nonzero(self._fp_vid[: self._fp_count] >= 0)[0]
+        new_count = int(keep.size)
+        self._fp[:new_count] = self._fp[keep]
+        self._fp[new_count : self._fp_count] = _FP_SENTINEL
+        self._fp_vid[:new_count] = self._fp_vid[keep]
+        self._fp_vid[new_count : self._fp_count] = -1
+        self._fp_count = new_count
+        self._fp_tombstones = 0
+        self._fp_dirty_cols.clear()
+        self._fp_full_resync = True
+
+    def _grow_fp(self, min_cap: Optional[int] = None) -> None:
+        """Double capacity until >= min_cap in ONE allocation; capacity
+        stays initial * 2^k, a multiple of the block size."""
+        new_cap = self._fp_cap * 2
+        while min_cap is not None and new_cap < min_cap:
+            new_cap *= 2
+        fp = np.full((new_cap, self.words), _FP_SENTINEL, np.uint32)
+        fp[: self._fp_count] = self._fp[: self._fp_count]
+        vid = np.full(new_cap, -1, np.int32)
+        vid[: self._fp_count] = self._fp_vid[: self._fp_count]
+        self._fp, self._fp_vid = fp, vid
+        self._fp_cap = new_cap
+        self._fp_full_resync = True
+
+    # -- device sync ---------------------------------------------------------------
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _fp_rows(self, rows) -> torch.Tensor:
+        """Host uint32 fingerprint rows as device int32 bit-views."""
+        return self._to_device(np.ascontiguousarray(self._fp[rows]).view(np.int32))
+
+    def _sync_ts(self) -> None:
+        if self._ts_full_resync or self._ts_dev is None:
+            self._ts_dev = self._to_device(self._ts)
+            self._ts_len_dev = self._to_device(self._ts_len)
+            self._ts_full_resync = False
+            self.sync_bytes["ts"] += self._ts.nbytes + self._ts_len.nbytes
+        elif self._ts_dirty_rows:
+            rows = sorted(set(self._ts_dirty_rows))
+            idx = self._to_device(np.asarray(rows, np.int64))
+            self._ts_dev[idx] = self._to_device(self._ts[rows])
+            self._ts_len_dev[idx] = self._to_device(self._ts_len[rows])
+            self.sync_bytes["ts"] += len(rows) * (self._ts.shape[1] * 4 + 4)
+        self._ts_dirty_rows.clear()
+
+    def _sync_fp(self) -> None:
+        if self._fp_full_resync or self._fp_dev is None:
+            self._fp_dev = self._fp_rows(slice(None))
+            self._fp_full_resync = False
+            self.sync_bytes["fp"] += self._fp.nbytes
+        else:
+            if self._fp_synced_count < self._fp_count:
+                s, e = self._fp_synced_count, self._fp_count
+                self._fp_dev[s:e] = self._fp_rows(slice(s, e))
+                self.sync_bytes["fp"] += (e - s) * self.words * 4
+            # In-place tombstone overwrites below the synced watermark.
+            dirty = sorted(
+                c for c in set(self._fp_dirty_cols)
+                if c < self._fp_synced_count
+            )
+            if dirty:
+                idx = self._to_device(np.asarray(dirty, np.int64))
+                self._fp_dev[idx] = self._fp_rows(dirty)
+                self.sync_bytes["fp"] += len(dirty) * self.words * 4
+        self._fp_synced_count = self._fp_count
+        self._fp_dirty_cols.clear()
+
+    def _padded_queries(self, query: np.ndarray) -> torch.Tensor:
+        """Queries rounded up to a multiple of 8 rows with copies of row 0
+        (a duplicate never changes a minimum; kept from the reference, whose
+        kernel tiling needed it)."""
+        q = np.asarray(query, np.uint32)
+        m_pad = -q.shape[0] % 8
+        if m_pad:
+            q = np.concatenate([q, np.repeat(q[:1], m_pad, axis=0)])
+        return self._to_device(np.ascontiguousarray(q).view(np.int32))
+
+    # -- queries ------------------------------------------------------------------
+
+    def match_timestamps(
+        self,
+        query_ts: Sequence[float],
+        min_match: int = 2,
+        tolerance: float = 0.0,
+        exclude_video_id: Optional[int] = None,
+    ) -> List[Tuple[int, int]]:
+        """[(video_id, match_count)] with count >= min_match, self-excluded."""
+        with self._lock:
+            if self._ts_count == 0 or len(query_ts) == 0:
+                return []
+            self._sync_ts()
+            ts_dev, len_dev = self._ts_dev, self._ts_len_dev
+            vids = self._ts_vid[: self._ts_count].copy()
+            count_n = self._ts_count
+        # Keep the FIRST max_cuts, matching _upsert_ts_locked's truncation.
+        q = np.full(self.max_cuts, np.nan, np.float32)
+        take = list(query_ts)[: self.max_cuts]
+        q[: len(take)] = np.asarray(take, np.float32)
+        counts = timestamp_match_counts(
+            self._to_device(q), ts_dev, len_dev, tolerance=tolerance
+        )[:count_n].cpu().numpy()
+        keep = counts >= min_match
+        if exclude_video_id is not None:
+            keep &= vids != exclude_video_id
+        idx = np.nonzero(keep)[0]
+        return [(int(vids[i]), int(counts[i])) for i in idx]
+
+    def search_fingerprints(
+        self, query: np.ndarray, min_match: int = 2,
+        exclude_video_id: Optional[int] = None,
+    ) -> List[Tuple[int, int]]:
+        """Per-video fingerprint match evidence: a corpus frame matches when
+        its min Hamming distance to any query frame is <= hamming_threshold.
+        Returns [(video_id, count)] with count >= min_match, count
+        descending."""
+        with self._lock:
+            if self._fp_count == 0 or query.shape[0] == 0:
+                return []
+            self._sync_fp()
+            fp_dev = self._fp_dev
+            fp_vid = self._fp_vid[: self._fp_count].copy()
+            count_n = self._fp_count
+        frame_min = corpus_frame_min(self._padded_queries(query), fp_dev)
+        matched = frame_min[:count_n].cpu().numpy() <= self.hamming_threshold
+        vids_matched = fp_vid[matched]
+        if vids_matched.size == 0:
+            return []
+        uniq, cnt = np.unique(vids_matched, return_counts=True)
+        out = [
+            (int(v), int(c))
+            for v, c in zip(uniq, cnt)
+            # v >= 0 drops tombstoned rows (an all-ones sentinel can sit
+            # within threshold of a dense query hash).
+            if c >= min_match and v >= 0 and v != exclude_video_id
+        ]
+        out.sort(key=lambda vc: -vc[1])
+        return out
+
+    def nearest_video_counts(
+        self, query: np.ndarray, exclude_video_id: Optional[int] = None,
+    ) -> Dict[int, int]:
+        """{video_id: #query frames whose nearest corpus fingerprint belongs
+        to that video (within hamming_threshold)} — each QUERY frame
+        contributes at most once."""
+        with self._lock:
+            if self._fp_count == 0 or query.shape[0] == 0:
+                return {}
+            self._sync_fp()
+            fp_dev = self._fp_dev
+            fp_vid = self._fp_vid[: self._fp_count].copy()
+            count_n = self._fp_count
+        m = query.shape[0]
+        q_min, q_arg = corpus_query_nearest(self._padded_queries(query), fp_dev)
+        q_min = q_min[:m].cpu().numpy()
+        q_arg = q_arg[:m].cpu().numpy()
+        out: Dict[int, int] = {}
+        for i in range(m):
+            # q_arg may land on a sentinel row beyond count_n.
+            if q_min[i] <= self.hamming_threshold and q_arg[i] < count_n:
+                vid = int(fp_vid[q_arg[i]])
+                if vid >= 0 and vid != exclude_video_id:
+                    out[vid] = out.get(vid, 0) + 1
+        return out
+
+    def locate_fragment(self, query_fps, top_k: int = 5,
+                        hamming_threshold: Optional[int] = None,
+                        exclude_video_id: Optional[int] = None):
+        raise NotImplementedError(
+            "fragment search waits for the fragment kernel "
+            "(ROADMAP.md queue B, align_pallas._fragment_kernel)")
