@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that tvidz_tpu_torch runs on the GPU: build its kernels,
 check each against its plain PyTorch version, drive ``ingest`` / ``analyze``
-through the port's CLI against a 2^20-fingerprint corpus, and time it.
+/ ``search`` through the port's CLI and the inspector service (uploads over
+the fake S3 -> SQS path, SSE, fragment and video search) against a
+2^20-fingerprint corpus, and time it.
 
     python3 chip_smoke.py
 
@@ -27,6 +29,11 @@ import time
 SEED = 20260
 FRAMES, HEIGHT, WIDTH = 128, 90, 160        # the main path's block
 SCAN_M, SCAN_N = 128, 1 << 20               # queries x corpus rows
+# K3 shapes (Q, Tq_pad, V, Tc): the reference's fragment config
+# (align_pallas.py:39, 2^20 corpus fingerprints), the smoke store's own
+# bucket, and 8 queries against it.
+FRAG_A, FRAG_B, FRAG_C = (1, 768, 1024, 1024), (1, 768, 256, 4096), (8, 768, 256, 4096)
+FRAG_THR = 10           # the service's hamming threshold (config.match)
 FILLER_VIDEOS, FILLER_FP_VIDEOS, FILLER_FP_FRAMES = 8192, 256, 4096
 SCORE_TOL = 1e-6        # mafd sums are integer-exact: bit-equal expected
 HASH_BITS_TOL = 2       # f32 sums in another order (tests/test_ops_phash.py)
@@ -93,6 +100,18 @@ def device_ms(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()) / reps / 1e3
+
+
+def device_busy(prof, wall_s: float) -> dict:
+    """Device busy time, idle share over ``wall_s`` and the top five items
+    of a device-activity-only torch.profiler trace (with CPU ops traced too,
+    each op would carry its kernels' device time again)."""
+    ops = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                  if e.self_device_time_total > 0), reverse=True)
+    busy_us = sum(us for us, _ in ops)
+    return {"device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / (wall_s * 1e6),
+            "device_top_ops_ms": [[k[:80], us / 1e3] for us, k in ops[:5]]}
 
 
 def popcount_rows(x):
@@ -206,7 +225,83 @@ def check_corpus_scan(dev):
     return float(err)
 
 
-# -- phase 5: the main path --------------------------------------------------------
+# -- phase 5: K3 -----------------------------------------------------------------
+
+
+def fragment_inputs(dev, shape, seed):
+    """Seeded (queries, q_lens, corpus, lens) at ``shape`` = (Q, Tq_pad, V,
+    Tc) as device int32 views, with, per query q: a fragment of video
+    7 + (31 q mod (V - 7)) taken at offset 100 + q with 3-bit damage on every
+    4th frame; video 5 cut short; video 6 empty. Video 7 repeats a 50-frame
+    period, so a query taken from it scores its maximum at every offset
+    congruent to its start modulo 50 (ties across tiles), and the answer is
+    the first of them. Returns the expected
+    (video, offset, q_len) per query too."""
+    import numpy as np
+    import torch
+
+    qn, tq_pad, v, tc = shape
+    rng = np.random.default_rng(seed)
+    corpus = rng.integers(0, 2 ** 32, size=(v, tc, 2), dtype=np.uint32)
+    lens = np.full(v, tc, np.int32)
+    lens[5], lens[6] = tc // 3, 0
+    corpus[7] = np.resize(corpus[7, :50], (tc, 2))
+    qs = rng.integers(0, 2 ** 32, size=(qn, tq_pad, 2), dtype=np.uint32)
+    q_lens = np.asarray([tq_pad - 37 * q for q in range(qn)], np.int32)
+    plants = []
+    for q in range(qn):
+        row, off, n = 7 + (31 * q) % (v - 7), 100 + q, int(q_lens[q])
+        qs[q, :n] = corpus[row, off:off + n]
+        qs[q, :n:4, 0] ^= np.uint32(0b111)
+        plants.append((row, off % 50 if row == 7 else off, n))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)  # noqa: E731
+                                    if a.dtype == np.uint32 else a).to(dev)
+    return (to(qs), to(q_lens), to(corpus), to(lens)), plants
+
+
+def check_fragment_search(dev):
+    import torch
+
+    from tvidz_tpu_torch.ops import align
+
+    err, checked = 0, []
+    for name, shape, seed in (("a", FRAG_A, SEED + 3), ("b", FRAG_B, SEED + 4),
+                              ("c", FRAG_C, SEED + 4)):
+        (qs, q_lens, corpus, lens), plants = fragment_inputs(dev, shape, seed)
+        cases = [(corpus, lens)]
+        if name == "a":                          # V not a multiple of 8
+            cases.append((corpus[:1021], lens[:1021]))
+        for c, ln in cases:
+            ko, ks = align.fragment_search_batch(qs, q_lens, c, ln, FRAG_THR)
+            po, ps = align.fragment_search_batch_plain(qs, q_lens, c, ln,
+                                                       FRAG_THR)
+            torch.cuda.synchronize()
+            err = max(err, (ko - po).abs().max().item(),
+                      (ks - ps).abs().max().item())
+            check(torch.equal(ko, po) and torch.equal(ks, ps),
+                  f"K3 differs from the plain version at ({name}) V={c.shape[0]}")
+            zero = ks == 0
+            check(zero.any().item() and (ko[zero] == -(shape[1] - 1)).all().item(),
+                  f"K3 all-zero rows at ({name}) do not report -(Tq_pad-1)")
+            check(int(ks[:, 6].max()) == 0, f"K3 matched an empty row at ({name})")
+        for q, (row, off, n) in enumerate(plants):
+            check(int(ks[q, row]) == n and int(ko[q, row]) == off,
+                  f"K3 missed the planted fragment of query {q} at ({name}): "
+                  f"{int(ko[q, row])}, {int(ks[q, row])} != {off}, {n}")
+        if name == "c":                          # each row == a single call
+            for q in range(shape[0]):
+                so, ss = align.fragment_search(qs[q], q_lens[q:q + 1], corpus,
+                                               lens, FRAG_THR)
+                check(torch.equal(so, ko[q]) and torch.equal(ss, ks[q]),
+                      f"K3 batch row {q} differs from its single call")
+        checked.append({"shape": name, "q_tq_pad_v_tc": list(shape),
+                        "max_score": int(ks.max())})
+    phase("k3_vs_plain", threshold=FRAG_THR, max_abs_err=err, exact=True,
+          shapes=checked)
+    return float(err)
+
+
+# -- phase 6: the main path --------------------------------------------------------
 
 
 def prefill_store(db_path: str) -> int:
@@ -247,10 +342,13 @@ def prefill_store(db_path: str) -> int:
 
 
 def run_cli(cli, argv):
-    """(exit code, the JSON lines it printed) of one in-process CLI call."""
+    """(exit code, the JSON lines it printed) of one in-process CLI call;
+    ``search`` prints one indented JSON document instead."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main([*argv, "--device", "cuda"])
+    if argv[0] == "search":
+        return rc, [json.loads(buf.getvalue())]
     return rc, [json.loads(x) for x in buf.getvalue().splitlines()
                 if x.startswith("{")]
 
@@ -316,6 +414,12 @@ def drive_main_path(work: str):
         check(rc == 0 and dev_cut["scene_cuts"] == delta_cuts
               and dev_cut["duplicates"] == [],
               f"K1-scored cuts {dev_cut} != planted {delta_cuts}")
+        rc, (found,) = run_cli(cli, ["search", renamed, "--db", url])
+        check(rc == 0 and found["best_alignments"][0]["filename"] == "alpha.y4m"
+              and found["best_alignments"][0]["offset_frames"] == 0
+              and found["best_alignments"][0]["match_count"] == 300
+              and found["fingerprint_matches"][0]["filename"] == "alpha.y4m",
+              f"search of the renamed copy: {found['best_alignments']}")
     finally:
         cli._local_session = local_session
     launches = {k.name: k.launches for k in backend.KERNELS}
@@ -327,10 +431,143 @@ def drive_main_path(work: str):
           "corpus tensors are not on the GPU")
     phase("main_path", launches=launches, renamed_copy=res["duplicates"],
           fresh_duplicates=fresh["duplicates"],
+          search_top_alignment=found["best_alignments"][0],
           k1_scored_cuts=dev_cut["scene_cuts"], planted_cuts=delta_cuts,
           corpus_fingerprints=corpus.num_fingerprints,
           alpha_cuts=alpha_cuts)
     return launches, url
+
+
+def drive_service(work: str, url: str, smi: str) -> dict:
+    """The port's InspectorApp in process on the card over the fake S3 ->
+    SQS path, shared dispatcher on, poller running, on the prefilled store:
+    an original and a fresh video uploaded concurrently, then a renamed copy
+    (early exit off) with its SSE stream read to 'done'; then
+    /search/fragment, /search/fragments and /search/video. Launch counts are
+    zeroed just before and read just after."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tvidz_tpu_torch import backend
+    from tvidz_tpu_torch._reference import Config, Store, fakes, write_synthetic_y4m
+    from tvidz_tpu_torch.service.app import create_app
+
+    cfg = Config()
+    cfg.service.sse_poll_s = 0.02
+    check(cfg.pipeline.shared_dispatcher, "the default config runs no dispatcher")
+    sqs, s3 = fakes.FakeSQS(), fakes.FakeS3(os.path.join(work, "s3"))
+    sqs.create_queue(cfg.service.sqs_queue)
+    s3.create_bucket(cfg.service.s3_bucket)
+    s3.configure_notification(sqs, cfg.service.sqs_queue)
+    paths = {}
+    for name, seed, n, cuts in (("omega.y4m", 11, 400, (80, 210, 330)),
+                                ("psi.y4m", 12, 360, (90, 250))):
+        paths[name] = os.path.join(work, "svc", name)
+        os.makedirs(os.path.dirname(paths[name]), exist_ok=True)
+        write_synthetic_y4m(paths[name], num_frames=n, height=180, width=320,
+                            cut_frames=cuts, seed=seed)
+    paths["omega-copy.y4m"] = paths["omega.y4m"]
+
+    t0 = time.perf_counter()
+    app = create_app(config=cfg, store=Store(url), s3=s3, sqs=sqs,
+                     device="cuda")
+    boot_s = time.perf_counter() - t0
+    client = app.wsgi.test_client()
+    walls = {}
+
+    def upload(name):
+        walls[name] = time.perf_counter()
+        s3.put_file(cfg.service.s3_bucket, name, paths[name])
+
+    def verdict(name, timeout=300):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            data = client.get(f"/status/{name}").get_json()
+            if data.get("status") in ("done", "error"):
+                walls[name] = time.perf_counter() - walls[name]
+                return data
+            time.sleep(0.02)
+        raise SmokeFailure(f"service: no verdict for {name} in {timeout} s")
+
+    backend.reset_launch_counts()
+    try:
+        app.start_poller()
+        upload("omega.y4m")
+        upload("psi.y4m")
+        omega, psi = verdict("omega.y4m"), verdict("psi.y4m")
+        check(omega["status"] == "done" and omega["duplicates"] == []
+              and psi["status"] == "done" and psi["duplicates"] == [],
+              f"service: original {omega}, fresh {psi}")
+        app.config.pipeline.early_exit = False
+        frames = []
+
+        def read_sse():
+            for chunk in client.stream("/status/stream/omega-copy.y4m"):
+                frames.append(json.loads(chunk.decode()[len("data: "):]))
+
+        sse = threading.Thread(target=read_sse, daemon=True)
+        sse.start()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            upload("omega-copy.y4m")
+            copy = verdict("omega-copy.y4m")
+            torch.cuda.synchronize()
+        traced = device_busy(prof, walls["omega-copy.y4m"])
+        sse.join(timeout=60)
+        check(copy["status"] == "done" and copy["duplicates"] == ["omega.y4m"],
+              f"service: renamed copy {copy}")
+        check(not sse.is_alive() and frames and frames[-1]["status"] == "done"
+              and frames[-1]["duplicates"] == ["omega.y4m"],
+              f"service: SSE stream did not end on done: {frames[-1:]}")
+
+        span = {"filename": "omega-copy.y4m", "start_frame": 50, "num_frames": 300}
+        t0 = time.perf_counter()
+        frag = client.post("/search/fragment", json_body=span).get_json()
+        fragment_s = time.perf_counter() - t0
+        top = frag["matches"][0]
+        check(top["filename"] == "omega.y4m" and top["offset_frames"] == 50
+              and top["match_count"] == 300, f"/search/fragment: {frag}")
+        batch = client.post("/search/fragments", json_body={"queries": [
+            span, {"filename": "omega-copy.y4m", "start_frame": 200,
+                   "num_frames": 120}]}).get_json()["results"]
+        check(batch[0]["matches"] == frag["matches"]
+              and batch[1]["matches"][0]["filename"] == "omega.y4m"
+              and batch[1]["matches"][0]["offset_frames"] == 200,
+              f"/search/fragments: {batch}")
+        with open(paths["omega.y4m"], "rb") as f:
+            body = f.read()
+        t0 = time.perf_counter()
+        found = client.post("/search/video?filename=omega-copy.y4m&top_k=3",
+                            data=body).get_json()
+        video_s = time.perf_counter() - t0
+        best = found["best_alignments"][0]
+        check(best["filename"] == "omega.y4m" and best["offset_frames"] == 0
+              and best["match_count"] == 400
+              and found["fingerprint_matches"][0]["filename"] == "omega.y4m",
+              f"/search/video: {found['best_alignments']}")
+        metrics = client.get("/metrics").get_json()
+    finally:
+        app.stop()
+    launches = {k.name: k.launches for k in backend.KERNELS}
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the service path never launched: {launches}")
+    disp = metrics["block_dispatcher"]
+    check(disp["passes"] > 0, f"service: the dispatcher ran no pass: {disp}")
+    check(app.corpus._fp_dev.device.type == "cuda"
+          and all(bu.dev.device.type == "cuda" for bu in app.corpus._al_buckets
+                  if bu is not None and bu.dev is not None),
+          "service corpus is not on the GPU")
+    phase("service", card=smi, launches=launches, verdicts={
+        "omega.y4m": omega["duplicates"], "psi.y4m": psi["duplicates"],
+        "omega-copy.y4m": copy["duplicates"]}, sse_frames=len(frames),
+        fragment_top=top, video_top=best, boot_s=boot_s,
+        upload_to_verdict_s=walls, copy_upload_traced=traced,
+        search_fragment_s=fragment_s,
+        search_video_s=video_s, dispatcher=disp,
+        stage_timings=metrics["stage_timings"],
+        sync_bytes=metrics["corpus_footprint"]["sync_bytes"])
+    return launches
 
 
 def time_analyze(work: str, url: str) -> dict:
@@ -360,8 +597,6 @@ def time_analyze(work: str, url: str) -> dict:
     check(res.status == "done" and res.duplicates == [], f"timed analyze: {res}")
     stages = analyzer.timer.summary()
     torch.cuda.synchronize()
-    # Device activity only: with CPU ops traced too, each op would carry its
-    # kernels' device time again and the busy sum would count it twice.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         with contextlib.redirect_stdout(io.StringIO()):
             t0 = time.perf_counter()
@@ -370,15 +605,8 @@ def time_analyze(work: str, url: str) -> dict:
             torch.cuda.synchronize()
             traced_s = time.perf_counter() - t0
     check(res.status == "done" and res.duplicates == [], f"traced analyze: {res}")
-    ops = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                  if e.self_device_time_total > 0), reverse=True)
-    busy_us = sum(us for us, _ in ops)
-    return {
-        "analyze_frames_per_s": n / seconds, "analyze_stages": stages,
-        "traced_analyze_s": traced_s, "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1 - busy_us / (traced_s * 1e6),
-        "device_top_ops_ms": [[k[:80], us / 1e3] for us, k in ops[:5]],
-    }
+    return {"analyze_frames_per_s": n / seconds, "analyze_stages": stages,
+            "traced_analyze_s": traced_s, **device_busy(prof, traced_s)}
 
 
 def main() -> int:
@@ -392,7 +620,7 @@ def main() -> int:
     # The analyzer's per-step log lines would bury the phase lines.
     os.environ.setdefault("TVIDZ_LOG_LEVEL", "WARNING")
     from tvidz_tpu_torch import backend
-    from tvidz_tpu_torch.ops import fused, hamming, phash
+    from tvidz_tpu_torch.ops import align, fused, hamming, phash
 
     smi = nvidia_smi()
     dev = backend.resolve_device("cuda")
@@ -409,12 +637,14 @@ def main() -> int:
 
     k1_err = check_fingerprint_block(dev)
     k2_err = check_corpus_scan(dev)
+    k3_err = check_fragment_search(dev)
 
     work = tempfile.mkdtemp(prefix="tvidz_chip_smoke_")
     os.environ["TVIDZ_TMP_DIR"] = os.path.join(work, "tmp")
     os.makedirs(os.environ["TVIDZ_TMP_DIR"])
     try:
-        launches, url = drive_main_path(work)
+        cli_launches, url = drive_main_path(work)
+        launches = drive_service(work, url, smi)
 
         left, right = phash.hash_operators(HEIGHT, WIDTH, dev)
         x = torch.randint(0, 256, (FRAMES, HEIGHT, WIDTH), dtype=torch.uint8,
@@ -429,13 +659,24 @@ def main() -> int:
         k2_plain = lambda: hamming.corpus_min_distance_plain(  # noqa: E731
             q, corpus, False)
         k2_ms, k2_plain_ms = interleaved_ms(k2, k2_plain, 10)
+        k3_times = {}
+        for name, shape in (("a", FRAG_A), ("b", FRAG_B)):
+            (qs, ql, c, ln), _ = fragment_inputs(dev, shape, SEED + 3)
+            k3 = lambda: align.fragment_search_batch(qs, ql, c, ln, FRAG_THR)  # noqa: E731
+            k3_plain = lambda: align.fragment_search_batch_plain(  # noqa: E731
+                qs, ql, c, ln, FRAG_THR)
+            ms, plain_ms = interleaved_ms(k3, k3_plain, 3)
+            k3_times[name] = {"ms": ms, "plain_ms": plain_ms,
+                              "device_ms": device_ms(k3, 10),
+                              "plain_device_ms": device_ms(k3_plain, 2)}
         phase("timings", card=smi, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
               k1_device_ms=device_ms(k1, 20),
               k1_plain_device_ms=device_ms(k1_plain, 20),
               k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
               k2_device_ms=device_ms(k2, 10),
               k2_plain_device_ms=device_ms(k2_plain, 3),
-              k2_shape=[SCAN_M, SCAN_N], **time_analyze(work, url))
+              k2_shape=[SCAN_M, SCAN_N], k3=k3_times,
+              cli_launches=cli_launches, **time_analyze(work, url))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -449,6 +690,10 @@ def main() -> int:
          "source": hamming.K2.repo_source, "replaces": hamming.K2.replaces,
          "launches": launches[hamming.K2.name], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": align.K3.name, "route": "cuda",
+         "source": align.K3.repo_source, "replaces": align.K3.replaces,
+         "launches": launches[align.K3.name], "max_abs_err": k3_err,
+         "ms": k3_times["a"]["ms"], "plain_ms": k3_times["a"]["plain_ms"]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ import torch
 
 from tvidz_tpu_torch import backend
 from tvidz_tpu_torch._reference import synthetic
-from tvidz_tpu_torch.ops import fused, hamming, phash
+from tvidz_tpu_torch.ops import align, fused, hamming, phash
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +68,39 @@ def test_corpus_scan_kernel_matches_plain(dev):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[2][0]) == 1023 and int(got[2][1]) == 70_001 - 50
+
+
+@pytest.mark.parametrize("v,tc,tq_pad", [(37, 1024, 320), (9, 256, 1536)])
+def test_fragment_search_kernel_matches_plain(dev, v, tc, tq_pad):
+    """K3 == the plain version on every (q, v) offset and score: planted
+    fragments (one damaged, one in a periodic row whose equal maxima must
+    resolve to the first offset), a short and an empty row, a random query
+    (its zero rows report -(Tq_pad-1)), V not a multiple of 8, two
+    thresholds, a query longer than the bucket; each batch row == its
+    single call."""
+    rng = np.random.default_rng(9)
+    corpus = rng.integers(0, 2 ** 32, size=(v, tc, 2), dtype=np.uint32)
+    lens = np.full(v, tc, np.int32)
+    lens[4], lens[7] = tc // 2, 0
+    corpus[4] = np.resize(corpus[4, :50], (tc, 2))   # period 50: tied maxima
+    qs = rng.integers(0, 2 ** 32, size=(3, tq_pad, 2), dtype=np.uint32)
+    q_lens = np.asarray([min(tq_pad, tc // 4), min(tq_pad - 1, tc // 2 - 3),
+                         tq_pad], np.int32)
+    qs[0, :q_lens[0]] = corpus[4, 3:3 + q_lens[0]]
+    qs[1, :q_lens[1]] = corpus[v - 1, 3:3 + q_lens[1]]
+    qs[1, ::3, 0] ^= np.uint32(0b101)
+    t = lambda a: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32  # noqa: E731
+                                   else a).to(dev)
+    before = align.K3.launches
+    for thr in (0, 6):
+        got = align.fragment_search_batch(t(qs), t(q_lens), t(corpus), t(lens), thr)
+        want = align.fragment_search_batch_plain(t(qs), t(q_lens), t(corpus),
+                                                 t(lens), thr)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        one = align.fragment_search(t(qs[1]), int(q_lens[1]), t(corpus),
+                                    t(lens), thr)
+        assert torch.equal(one[0], got[0][1]) and torch.equal(one[1], got[1][1])
+        assert int(got[1][0, 4]) == q_lens[0] and int(got[0][0, 4]) == 3
+        assert (got[0][2][got[1][2] == 0] == -(tq_pad - 1)).all()
+    assert align.K3.launches == before + 4

@@ -105,5 +105,6 @@ def test_load_from_store_matches(tmp_path):
     _mirrors_equal(tc, jc)
     _answers_equal(tc, jc, _queries(_videos()))
     assert tc.match_timestamps([2.0, 1.0]) == jc.match_timestamps([2.0, 1.0])
-    with pytest.raises(NotImplementedError):
-        tc.locate_fragment(_videos()[1][:8])
+    frag = _videos()[4][200:240]
+    assert tc.locate_fragment(frag) == jc.locate_fragment(frag)
+    assert tc.locate_fragment(frag)[0][:2] == (4, 200)

@@ -1,11 +1,15 @@
 """The port runs without jax, never imports it, and never falls back to the
-CPU on its own."""
+CPU on its own: its CLI (``analyze``, ``search``) and its service entrypoint
+run in interpreters whose import system refuses jax and logs every attempt."""
 
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
+import time
+import urllib.request
 from pathlib import Path
 
 import pytest
@@ -19,20 +23,24 @@ from tvidz_tpu_torch import _reference, backend
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# Runs the port's CLI in a fresh interpreter whose import system refuses
-# jax, then reports what got imported.
+# Runs a module of the port (argv[2]) in a fresh interpreter whose import
+# system refuses jax and appends every refused name to argv[3], then reports
+# what got imported.
 _NO_JAX_RUNNER = r"""
 import json, runpy, sys
 class _RefuseJax:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib"):
+            with open(sys.argv[3], "a") as f:
+                f.write(name + "\n")
             raise ModuleNotFoundError(f"No module named {name!r} (refused)")
         return None
 sys.meta_path.insert(0, _RefuseJax())
 sys.path.insert(0, sys.argv[1])
-sys.argv = ["tvidz_tpu_torch"] + sys.argv[2:]
+module = sys.argv[2]
+sys.argv = [module] + sys.argv[4:]
 try:
-    runpy.run_module("tvidz_tpu_torch", run_name="__main__")
+    runpy.run_module(module, run_name="__main__")
 except SystemExit as e:
     code = e.code
 ops = sys.modules["tvidz_tpu.ops"]
@@ -43,23 +51,100 @@ print(json.dumps({"code": code,
 """
 
 
+def _run_cli(tmp_path, *argv):
+    """(stdout, names whose import was refused) of one port CLI call with
+    jax refused; stdout's last line is the runner's report."""
+    refused = tmp_path / "refused.log"
+    env = dict(os.environ, TVIDZ_TMP_DIR=str(tmp_path),
+               TVIDZ_LOG_LEVEL="WARNING")
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_RUNNER, str(ROOT), "tvidz_tpu_torch",
+         str(refused), *argv, "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout, refused.read_text().split() if refused.exists() else []
+
+
 def test_cli_analyze_runs_with_jax_refused(tmp_path):
     video = tmp_path / "clip.y4m"
     _, planted = write_synthetic_y4m(str(video), num_frames=40, height=36,
                                      width=64, cut_frames=(17,), seed=2)
-    env = dict(os.environ, TVIDZ_TMP_DIR=str(tmp_path),
-               TVIDZ_LOG_LEVEL="WARNING")
-    proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_RUNNER, str(ROOT), "analyze",
-         str(video), "--db", f"sqlite:///{tmp_path / 'c.db'}",
-         "--device", "cpu", "--compact"],
-        capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    out, refused = _run_cli(tmp_path, "analyze", str(video), "--db",
+                            f"sqlite:///{tmp_path / 'c.db'}", "--compact")
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
     result, report = lines[0], lines[-1]
     assert result["status"] == "done" and result["scene_cuts"] == planted
     assert result["fingerprinted_frames"] == 40
     assert report == {"code": 0, "jax": [], "bare_ops": True}
+    assert refused == []
+
+
+def test_cli_search_runs_with_jax_refused(tmp_path):
+    """``search`` after ``analyze``: the clip aligns with its stored self at
+    offset 0 through fragment search (the plain K3 on the CPU)."""
+    video = tmp_path / "clip.y4m"
+    write_synthetic_y4m(str(video), num_frames=70, height=36, width=64,
+                        cut_frames=(17, 44), seed=3)
+    db = f"sqlite:///{tmp_path / 'c.db'}"
+    _run_cli(tmp_path, "analyze", str(video), "--db", db, "--compact")
+    out, refused = _run_cli(tmp_path, "search", str(video), "--db", db)
+    body, report = out.strip().rsplit("\n", 1)
+    result, report = json.loads(body), json.loads(report)
+    assert report == {"code": 0, "jax": [], "bare_ops": True}
+    assert refused == []
+    top = result["best_alignments"][0]
+    assert top["filename"] == "clip.y4m" and top["offset_frames"] == 0
+    assert top["match_count"] == 70
+    assert result["timestamp_matches"][0]["filename"] == "clip.y4m"
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_service_entrypoint_answers_status_with_jax_refused(tmp_path):
+    """Boot the port's service (fake AWS, no poller, CPU) with jax refused
+    and answer /status — the route whose reference registry lookup imports
+    the JAX analyzer."""
+    port = _free_port()
+    refused = tmp_path / "refused.log"
+    env = dict(os.environ, TVIDZ_TMP_DIR=str(tmp_path), TMPDIR=str(tmp_path),
+               TVIDZ_FAKE_S3_ROOT=str(tmp_path / "s3"),
+               TVIDZ_LOG_LEVEL="WARNING")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _NO_JAX_RUNNER, str(ROOT),
+         "tvidz_tpu_torch.service.entrypoint", str(refused), "--fake-aws",
+         "--no-poller", "--device", "cpu", "--host", "127.0.0.1",
+         "--port", str(port), "--db", f"sqlite:///{tmp_path / 's.db'}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=tmp_path)
+    base = f"http://127.0.0.1:{port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=10) as r:
+            return json.loads(r.read())
+
+    try:
+        deadline = time.time() + 240
+        health = None
+        while time.time() < deadline and proc.poll() is None:
+            try:
+                health = get("/healthz")
+                if health["status"] == "ok":
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        assert health and health["status"] == "ok", proc.stderr.read1()[-3000:]
+        assert get("/status/1723456789-ghost.mp4") == {"status": "pending"}
+        assert get("/metrics")["block_dispatcher"]["passes"] == 0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+    assert not refused.exists(), refused.read_text()
 
 
 def test_port_sources_never_import_jax():

@@ -3,11 +3,14 @@
     python -m tvidz_tpu_torch analyze video.y4m --db sqlite:///corpus.db
     python -m tvidz_tpu_torch ingest videos/ --db sqlite:///corpus.db
     python -m tvidz_tpu_torch fingerprint video.y4m -o fp.npz
+    python -m tvidz_tpu_torch search fragment.y4m --db sqlite:///corpus.db
+    python -m tvidz_tpu_torch serve --fake-aws --port 5055
 
 The same commands and JSON output as ``tvidz_tpu/cli.py``, plus
 ``--device`` (default ``$TVIDZ_TORCH_DEVICE``, else ``cuda``; ``cpu`` runs
-the kernels' plain PyTorch versions). ``search``, ``serve`` and ``bench``
-come with later slices (ROADMAP.md).
+the kernels' plain PyTorch versions; ``serve`` passes it on to the
+entrypoint with its other arguments). ``bench`` and ``evict-host`` come
+with later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ import sys
 def _local_session(db_url: str, device=None):
     """(analyzer, store, corpus) wired for local files: the 'bucket' is the
     filesystem and keys are paths."""
-    from tvidz_tpu_torch._reference import AnalysisRegistry, Config, Store
+    from tvidz_tpu_torch._reference import Config, Store
     from tvidz_tpu_torch.corpus.device_corpus import DeviceCorpus
     from tvidz_tpu_torch.pipeline.analyzer import Analyzer
+    from tvidz_tpu_torch.pipeline.progress import AnalysisRegistry
 
     config = Config()
     store = Store(db_url)
@@ -135,6 +139,60 @@ def cmd_ingest(args) -> int:
     return 0 if done == len(results) else 1
 
 
+def cmd_search(args) -> int:
+    """Search a video against the corpus without adding it: timestamp
+    matches, fingerprint evidence and the best fragment alignments."""
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+
+    analyzer, store, corpus = _local_session(args.db, args.device)
+    config = analyzer.config
+    model = FingerprintModel(config, device=corpus.device)
+    cuts, fps = model.analyze_path(args.video)
+
+    ts_matches = corpus.match_timestamps(
+        cuts, min_match=config.match.min_match,
+        tolerance=config.match.timestamp_tolerance,
+    )
+    # Each QUERY frame credits its nearest corpus video at most once, as in
+    # the analyzer and /search/video.
+    fp_counts = corpus.nearest_video_counts(fps)
+    fp_matches = sorted(
+        ((v, c) for v, c in fp_counts.items() if c >= config.match.fp_min_match),
+        key=lambda vc: -vc[1],
+    )
+    frag = corpus.locate_fragment(fps, top_k=args.top_k)
+
+    def resolve(vid):
+        v = store.get_video_by_id(vid)
+        return v.filename if v else None
+
+    print(json.dumps({
+        "file": args.video,
+        "scene_cuts": cuts,
+        "timestamp_matches": [
+            {"video_id": v, "filename": resolve(v), "matching_timestamps": c}
+            for v, c in ts_matches
+        ],
+        "fingerprint_matches": [
+            {"video_id": v, "filename": resolve(v), "matching_frames": c}
+            for v, c in fp_matches
+        ],
+        "best_alignments": [
+            {"video_id": v, "filename": resolve(v), "offset_frames": o,
+             "match_count": s}
+            for v, o, s in frag
+        ],
+    }, indent=2))
+    return 0
+
+
+def cmd_serve(extra) -> int:
+    from tvidz_tpu_torch.service.entrypoint import main as serve_main
+
+    serve_main(extra)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tvidz_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -154,6 +212,13 @@ def main(argv=None) -> int:
     p.add_argument("-o", "--output", default=None, help=".npz output path")
     add_device(p)
 
+    p = sub.add_parser("search", help="search a video against the corpus "
+                                      "without adding it")
+    p.add_argument("video")
+    p.add_argument("--db", default="sqlite:///tvidz.db")
+    p.add_argument("--top-k", type=int, default=5)
+    add_device(p)
+
     p = sub.add_parser("ingest", help="batch-analyze a directory into the corpus")
     p.add_argument("directory")
     p.add_argument("--db", default="sqlite:///tvidz.db")
@@ -161,11 +226,20 @@ def main(argv=None) -> int:
                    help="comma-separated extensions to ingest")
     add_device(p)
 
-    args = parser.parse_args(argv)
+    sub.add_parser("serve", help="run the inspector service (arguments pass "
+                                 "through to the entrypoint)")
+
+    args, extra = parser.parse_known_args(argv)
+    if args.cmd == "serve":
+        return cmd_serve(extra)
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.cmd == "analyze":
         return cmd_analyze(args)
     if args.cmd == "fingerprint":
         return cmd_fingerprint(args)
+    if args.cmd == "search":
+        return cmd_search(args)
     return cmd_ingest(args)
 
 

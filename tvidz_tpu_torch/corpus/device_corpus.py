@@ -13,9 +13,12 @@ is unchanged, in full after growth or compaction:
   sentinel-padded, queried with the corpus scan (kernel K2 on CUDA). The
   reference's word-major (W, N) layout served TPU lanes; K2 reads rows.
 
-The alignment (fragment-search) buckets keep their host mirror; their
-device sync and ``locate_fragment`` wait for the fragment kernel (ROADMAP
-queue B).
+- alignment buckets: per length tier (time capacity 256 << b), a
+  (vcap, tcap, W) int32 bit-view of the host bucket + (vcap,) int32 lengths,
+  synced by dirty rows, queried with ops/align.fragment_search_batch (kernel
+  K3 on CUDA). The reference's per-shape kernel->XLA fallback
+  (``pallas_fragment_dispatch``) has no counterpart: on CUDA a K3 build or
+  launch failure raises.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from tvidz_tpu_torch import backend
 from tvidz_tpu_torch._reference import log
+from tvidz_tpu_torch.ops.align import fragment_search_batch
 from tvidz_tpu_torch.ops.hamming import corpus_frame_min, corpus_query_nearest
 from tvidz_tpu_torch.ops.timestamps import timestamp_match_counts
 
@@ -37,8 +41,10 @@ _AL_T0 = 256  # frame capacity of alignment bucket 0; bucket b holds T0<<b
 
 
 class _AlignBucket:
-    """One (vcap, tcap, words) tier of the bucketed alignment index (host
-    mirror only in this slice; tvidz_tpu/corpus/device_corpus.py:120)."""
+    """One (vcap, tcap, words) tier of the bucketed alignment index
+    (tvidz_tpu/corpus/device_corpus.py:120): videos grouped by sequence
+    length, so a fragment query costs the corpus's footage, not every video
+    paying the longest one's capacity."""
 
     def __init__(self, tcap: int, vcap: int, words: int):
         self.tcap = tcap
@@ -47,6 +53,8 @@ class _AlignBucket:
         self.len = np.zeros(vcap, np.int32)
         self.vid = np.full(vcap, -1, np.int32)
         self.count = 0              # rows ever claimed (incl. tombstones)
+        self.dev: Optional[torch.Tensor] = None       # (vcap, tcap, W) int32
+        self.len_dev: Optional[torch.Tensor] = None   # (vcap,) int32
         self.dirty: set = set()
         self.full_resync = True
         self.free: List[int] = []   # tombstoned rows for reuse
@@ -413,6 +421,23 @@ class DeviceCorpus:
         self._fp_synced_count = self._fp_count
         self._fp_dirty_cols.clear()
 
+    def _sync_al_bucket(self, bu: _AlignBucket) -> None:
+        """Per-bucket device mirror: in full after growth (or the first
+        query), else the dirty rows only."""
+        if bu.full_resync or bu.dev is None:
+            bu.dev = self._to_device(bu.buf.view(np.int32))
+            bu.len_dev = self._to_device(bu.len)
+            self.sync_bytes["al"] += bu.buf.nbytes + bu.len.nbytes
+        elif bu.dirty:
+            rows = sorted(bu.dirty)
+            idx = self._to_device(np.asarray(rows, np.int64))
+            bu.dev[idx] = self._to_device(bu.buf[rows].view(np.int32))
+            bu.len_dev[idx] = self._to_device(bu.len[rows])
+            self.sync_bytes["al"] += len(rows) * (
+                bu.tcap * self.words * 4 + 4)
+        bu.full_resync = False
+        bu.dirty.clear()
+
     def _padded_queries(self, query: np.ndarray) -> torch.Tensor:
         """Queries rounded up to a multiple of 8 rows with copies of row 0
         (a duplicate never changes a minimum; kept from the reference, whose
@@ -433,20 +458,23 @@ class DeviceCorpus:
         exclude_video_id: Optional[int] = None,
     ) -> List[Tuple[int, int]]:
         """[(video_id, match_count)] with count >= min_match, self-excluded."""
-        with self._lock:
-            if self._ts_count == 0 or len(query_ts) == 0:
-                return []
-            self._sync_ts()
-            ts_dev, len_dev = self._ts_dev, self._ts_len_dev
-            vids = self._ts_vid[: self._ts_count].copy()
-            count_n = self._ts_count
         # Keep the FIRST max_cuts, matching _upsert_ts_locked's truncation.
         q = np.full(self.max_cuts, np.nan, np.float32)
         take = list(query_ts)[: self.max_cuts]
         q[: len(take)] = np.asarray(take, np.float32)
-        counts = timestamp_match_counts(
-            self._to_device(q), ts_dev, len_dev, tolerance=tolerance
-        )[:count_n].cpu().numpy()
+        with self._lock:
+            if self._ts_count == 0 or len(query_ts) == 0:
+                return []
+            self._sync_ts()
+            vids = self._ts_vid[: self._ts_count].copy()
+            count_n = self._ts_count
+            # Launched under the lock (here and in the other queries): a
+            # later dirty-row sync writes the device mirror in place, and
+            # must come after this read, on the same stream.
+            counts = timestamp_match_counts(
+                self._to_device(q), self._ts_dev, self._ts_len_dev,
+                tolerance=tolerance)
+        counts = counts[:count_n].cpu().numpy()
         keep = counts >= min_match
         if exclude_video_id is not None:
             keep &= vids != exclude_video_id
@@ -465,10 +493,10 @@ class DeviceCorpus:
             if self._fp_count == 0 or query.shape[0] == 0:
                 return []
             self._sync_fp()
-            fp_dev = self._fp_dev
             fp_vid = self._fp_vid[: self._fp_count].copy()
             count_n = self._fp_count
-        frame_min = corpus_frame_min(self._padded_queries(query), fp_dev)
+            frame_min = corpus_frame_min(self._padded_queries(query),
+                                         self._fp_dev)
         matched = frame_min[:count_n].cpu().numpy() <= self.hamming_threshold
         vids_matched = fp_vid[matched]
         if vids_matched.size == 0:
@@ -494,11 +522,11 @@ class DeviceCorpus:
             if self._fp_count == 0 or query.shape[0] == 0:
                 return {}
             self._sync_fp()
-            fp_dev = self._fp_dev
             fp_vid = self._fp_vid[: self._fp_count].copy()
             count_n = self._fp_count
+            q_min, q_arg = corpus_query_nearest(self._padded_queries(query),
+                                                self._fp_dev)
         m = query.shape[0]
-        q_min, q_arg = corpus_query_nearest(self._padded_queries(query), fp_dev)
         q_min = q_min[:m].cpu().numpy()
         q_arg = q_arg[:m].cpu().numpy()
         out: Dict[int, int] = {}
@@ -510,9 +538,92 @@ class DeviceCorpus:
                     out[vid] = out.get(vid, 0) + 1
         return out
 
-    def locate_fragment(self, query_fps, top_k: int = 5,
-                        hamming_threshold: Optional[int] = None,
-                        exclude_video_id: Optional[int] = None):
-        raise NotImplementedError(
-            "fragment search waits for the fragment kernel "
-            "(ROADMAP.md queue B, align_pallas._fragment_kernel)")
+    def _place_fragment_query(self, q: np.ndarray) -> torch.Tensor:
+        """The padded (Q, Tq_pad, W) uint32 queries on the device, placed
+        once per call for every bucket's scan."""
+        return self._to_device(np.ascontiguousarray(q).view(np.int32))
+
+    def _fragment_query(self, q, q_lens, al_dev, len_dev, thr):
+        """One bucket's alignment scan: ((Q, V) offsets, (Q, V) scores)."""
+        return fragment_search_batch(q, q_lens, al_dev, len_dev, thr)
+
+    def locate_fragment(
+        self,
+        query_fps: np.ndarray,
+        top_k: int = 5,
+        hamming_threshold: Optional[int] = None,
+        exclude_video_id: Optional[int] = None,
+    ) -> List[Tuple[int, int, int]]:
+        """Partial-reuse localization: where a (Tq, W) uint32 fingerprint
+        fragment best aligns inside each corpus video. Returns
+        [(video_id, best_offset_frames, match_count)], match_count
+        descending (stable), top_k entries; offsets are relative to the
+        video's first fingerprinted frame. One scan per occupied length
+        bucket."""
+        return self.locate_fragments(
+            [query_fps], top_k=top_k, hamming_threshold=hamming_threshold,
+            exclude_video_ids=[exclude_video_id])[0]
+
+    def locate_fragments(
+        self,
+        query_fps_list: Sequence[np.ndarray],
+        top_k: int = 5,
+        hamming_threshold: Optional[int] = None,
+        exclude_video_ids: Optional[Sequence[Optional[int]]] = None,
+    ) -> List[List[Tuple[int, int, int]]]:
+        """One result list per query fragment, each equal to its own
+        ``locate_fragment``. The queries share one K3 launch per bucket:
+        each is padded to the batch's 64-frame width, which moves no
+        non-zero score's offset (a row t >= q_len never counts), and
+        zero-score rows are dropped."""
+        thr = self.hamming_threshold if hamming_threshold is None else hamming_threshold
+        excl = list(exclude_video_ids or [None] * len(query_fps_list))
+        out: List[List[Tuple[int, int, int]]] = [[] for _ in query_fps_list]
+        live = [i for i, q in enumerate(query_fps_list) if q.shape[0] > 0]
+        if not live:
+            return out
+        # Pad the queries to a 64-frame multiple (the reference's query
+        # bucket, tvidz_tpu/corpus/device_corpus.py:783); padded rows are
+        # masked by q_len inside the scan.
+        tq_pad = max(max(64, -(-query_fps_list[i].shape[0] // 64) * 64)
+                     for i in live)
+        q = np.full((len(live), tq_pad, self.words), _FP_SENTINEL, np.uint32)
+        for j, i in enumerate(live):
+            q[j, : query_fps_list[i].shape[0]] = np.asarray(
+                query_fps_list[i], np.uint32)
+        with self._lock:
+            if not self._al_row:
+                return out
+            q_dev = self._place_fragment_query(q)
+            q_lens = self._to_device(np.asarray(
+                [query_fps_list[i].shape[0] for i in live], np.int32))
+            # Every bucket's scan is launched before any result is pulled,
+            # and under the lock: a later dirty-row sync writes the bucket
+            # in place, after these reads on the same stream.
+            pending = []
+            for bu in self._al_buckets:
+                if bu is None or bu.count == 0:
+                    continue
+                self._sync_al_bucket(bu)
+                pending.append((
+                    self._fragment_query(q_dev, q_lens, bu.dev, bu.len_dev, thr),
+                    bu.vid[: bu.count].copy(), bu.count))
+        pulled = [(offs[:, :count].cpu().numpy(),
+                   scores[:, :count].cpu().numpy(), vids)
+                  for (offs, scores), vids, count in pending]
+        for j, i in enumerate(live):
+            keep = [vids >= 0 if excl[i] is None
+                    else (vids >= 0) & (vids != excl[i])
+                    for _, _, vids in pulled]
+            vids = np.concatenate([v[k] for (_, _, v), k in zip(pulled, keep)])
+            offs = np.concatenate([o[j][k] for (o, _, _), k in zip(pulled, keep)])
+            scores = np.concatenate(
+                [s[j][k] for (_, s, _), k in zip(pulled, keep)])
+            # Zero-score rows are not matches (their offset is an artifact
+            # of the query padding width).
+            real = scores > 0
+            vids, offs, scores = vids[real], offs[real], scores[real]
+            order = np.argsort(-scores, kind="stable")[:top_k]
+            out[i] = [(int(vids[k]), int(offs[k]), int(scores[k]))
+                      for k in order]
+        return out

@@ -6,10 +6,11 @@ new carry) through ``ops/fused.fingerprint_block`` (kernel K1 on CUDA).
 ``process_block`` is the one per-block path every surface shares: pad a
 short block with its last frame and pass ``valid_t``, score through the
 ``NativeSceneScorer`` policy, cut at the threshold with 6-decimal rounding.
+With a ``SharedBlockDispatcher`` attached (the service does), its device
+step goes through the dispatcher's batched ``forward_streams`` pass instead.
 
-Not in this slice (ROADMAP queue A): the coefficient-shipping payload
-(``ship_dct_coeffs``), the other hash families, the batched
-``forward_streams`` / ``forward_batch`` and the shared dispatcher.
+Not ported yet (ROADMAP queue A): the coefficient-shipping payload
+(``ship_dct_coeffs``), the other hash families and ``forward_batch``.
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ class FingerprintModel:
         if getattr(p, "ship_dct_coeffs", False):
             raise NotImplementedError(f"ship_dct_coeffs: {_LATER}")
         self.ship_coeffs = False
+        # Optional SharedBlockDispatcher (pipeline/dispatcher.py): when set,
+        # process_block's device step rides its shared batched pass.
+        self.dispatcher = None
         self.left, self.right = hash_operators(
             self.height, self.width, self.device, self.dct_size,
             self.hash_size)
@@ -81,7 +85,22 @@ class FingerprintModel:
         raise NotImplementedError(f"forward_batch: {_LATER}")
 
     def forward_streams(self, lumas, carries, valid_ts):
-        raise NotImplementedError(f"forward_streams: {_LATER}")
+        """K independent streams' (T, H, W) blocks in one pass: ((K, T)
+        scores, (K, T, words) int32 fps, tuple of K carries). Each stream
+        is its own ``forward`` (K1 takes one stream and its carry), so
+        stream k's results equal a lone ``forward`` of it bit for bit.
+        ``valid_ts``: each block's real frame count (T for a full block)."""
+        out = [self.forward(luma, carry, valid_t=int(vt))
+               for luma, carry, vt in zip(lumas, carries, valid_ts)]
+        return (torch.stack([o[0] for o in out]),
+                torch.stack([o[1] for o in out]),
+                tuple(o[2] for o in out))
+
+    def example_payload(self) -> torch.Tensor:
+        """A zero (T, H, W) uint8 block at the model's dispatch shape (warm
+        passes use it)."""
+        return torch.zeros((self.block_frames, self.height, self.width),
+                           dtype=torch.uint8, device=self.device)
 
     def process_block(self, block, carry, scorer, last_cut=None):
         """Pad a short block to the static shape (carry kept on the last
@@ -99,11 +118,20 @@ class FingerprintModel:
         buf = np.asarray(block.luma)
         if t < bt:
             buf = np.concatenate([buf, np.repeat(buf[-1:], bt - t, axis=0)])
-        luma = torch.from_numpy(np.ascontiguousarray(buf)).to(self.device)
-        scores_dev, fps_dev, carry = self.forward(
-            luma, carry, valid_t=t if t < bt else None)
-        scores = scorer.scores(block, scores_dev, t)
-        fps = words_to_numpy(fps_dev[:t])
+        if self.dispatcher is not None:
+            # Shared batched dispatch (pipeline/dispatcher.py): concurrent
+            # analyses' blocks ride one pass; the future blocks this thread
+            # where the direct forward would have.
+            scores_h, fps_h, carry = self.dispatcher.submit(
+                buf, carry, t).result()
+            scores = scorer.scores(block, scores_h, t)
+            fps = fps_h[:t]
+        else:
+            luma = torch.from_numpy(np.ascontiguousarray(buf)).to(self.device)
+            scores_dev, fps_dev, carry = self.forward(
+                luma, carry, valid_t=t if t < bt else None)
+            scores = scorer.scores(block, scores_dev, t)
+            fps = words_to_numpy(fps_dev[:t])
         cuts = self.extract_cuts(scores, block.pts, t, last_cut)
         return fps, carry, cuts, t
 

@@ -1,0 +1,168 @@
+"""Process entrypoint of the port's inspector service.
+
+Port of ``tvidz_tpu/service/entrypoint.py``: bootstrap the AWS resources
+(queue with spin-wait retry, bucket, CORS, the S3 -> SQS notification), bind
+and serve HTTP at once (``/healthz`` reports "warming"), warm the device on
+the main thread — build every kernel, run one ``forward`` and one dispatcher
+pass per batch bucket — then mark the app ready and start the SQS poller.
+
+    python -m tvidz_tpu_torch.service.entrypoint --fake-aws \\
+        --db sqlite:///:memory: --port 5055 [--device cuda|cpu]
+
+One process on one GPU: ``--mesh`` and a multi-host cluster
+(``TVIDZ_COORDINATOR``) are ROADMAP slice 3 and raise here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+from tvidz_tpu_torch import backend
+from tvidz_tpu_torch._reference import Config, Store, aws, fakes, log, wsgi
+from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+from tvidz_tpu_torch.pipeline.dispatcher import SharedBlockDispatcher
+from tvidz_tpu_torch.service.app import create_app
+
+_SLICE_3 = ("multi-GPU and multi-host serving are not ported yet "
+            "(ROADMAP.md, slice 3)")
+
+
+def build_clients(config: Config, fake: bool, fake_root: str = None):
+    if fake:
+        if fake_root is None:
+            fake_root = os.environ.get(
+                "TVIDZ_FAKE_S3_ROOT",
+                os.path.join(tempfile.gettempdir(), "tvidz-fake-s3"))
+        sqs = fakes.FakeSQS()
+        s3 = fakes.FakeS3(fake_root)
+        sqs.create_queue(config.service.sqs_queue)
+        s3.create_bucket(config.service.s3_bucket)
+        s3.configure_notification(sqs, config.service.sqs_queue)
+        return s3, sqs
+    clients = aws()
+    svc = config.service
+    return (
+        clients.S3Client(svc.s3_endpoint, region=svc.aws_region,
+                         access_key=svc.aws_access_key,
+                         secret_key=svc.aws_secret_key),
+        clients.SQSClient(svc.effective_sqs_endpoint, svc.aws_region,
+                          access_key=svc.aws_access_key,
+                          secret_key=svc.aws_secret_key),
+    )
+
+
+def bootstrap(config: Config, s3, sqs, retries: int = 30,
+              wait_s: float = 2.0) -> None:
+    """Block until the queue is creatable, ensure the bucket, then apply
+    bucket CORS and the s3:ObjectCreated:* -> SQS notification; each step
+    is idempotent and best-effort, and a failure is logged."""
+    queue_url = None
+    for attempt in range(retries):
+        try:
+            queue_url = sqs.create_queue(config.service.sqs_queue)
+            break
+        except Exception as e:  # noqa: BLE001
+            log("entrypoint",
+                f"Waiting for SQS to be ready... (attempt {attempt+1}: {e})")
+            time.sleep(wait_s)
+    try:
+        s3.create_bucket(config.service.s3_bucket)
+    except Exception as e:  # noqa: BLE001
+        log("entrypoint", f"bucket create failed (may already exist): {e}")
+    try:
+        s3.put_bucket_cors(config.service.s3_bucket)
+        log("entrypoint", f"bucket CORS applied to '{config.service.s3_bucket}'")
+    except Exception as e:  # noqa: BLE001
+        log("entrypoint", f"bucket CORS apply failed: {e}")
+    try:
+        queue_arn = None
+        if queue_url is not None:
+            try:
+                queue_arn = sqs.get_queue_arn(queue_url)
+            except Exception:  # noqa: BLE001 — emulators without attributes
+                pass
+        if queue_arn is None:
+            queue_arn = (f"arn:aws:sqs:{config.service.aws_region}:"
+                         f"000000000000:{config.service.sqs_queue}")
+        s3.put_bucket_notification(config.service.s3_bucket, queue_arn)
+        log("entrypoint",
+            f"s3:ObjectCreated:* -> {queue_arn} notification applied")
+    except Exception as e:  # noqa: BLE001
+        log("entrypoint", f"bucket notification apply failed: {e}")
+
+
+def warmup_device(config: Config, device) -> None:
+    """Build every kernel (CUDA), run one forward at the production block
+    shape, and one dispatcher pass at each batch bucket."""
+    if device.type == "cuda":
+        backend.build_all()
+    model = FingerprintModel(config, device=device)
+    scores, _, _ = model.forward(model.example_payload(), model.init_carry())
+    scores.cpu()
+    if config.pipeline.shared_dispatcher:
+        SharedBlockDispatcher(model).warm()
+    log("entrypoint", f"device warm on {device}: kernels built, block shape "
+                      + "x".join(str(d) for d in model.example_payload().shape))
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="tvidz_tpu_torch inspector service")
+    parser.add_argument("--host", default=None)
+    parser.add_argument("--port", type=int, default=None)
+    parser.add_argument("--db", default=None, help="store URL (sqlite:/// or postgresql://)")
+    parser.add_argument("--s3-endpoint", default=None)
+    parser.add_argument("--fake-aws", action="store_true",
+                        help="in-process S3/SQS fakes (hermetic demo/test mode)")
+    parser.add_argument("--no-poller", action="store_true")
+    parser.add_argument("--mesh", action="store_true",
+                        help="shard the corpus over several GPUs (not ported yet)")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default, or $TVIDZ_TORCH_DEVICE) or cpu")
+    args = parser.parse_args(argv)
+    if args.mesh:
+        raise SystemExit(f"--mesh: {_SLICE_3}")
+    if os.environ.get("TVIDZ_COORDINATOR"):
+        raise SystemExit(f"TVIDZ_COORDINATOR is set: {_SLICE_3}")
+    device = backend.resolve_device(args.device)
+
+    config = Config()
+    # Thumbnails on by default in the service (library default is off).
+    if not config.pipeline.thumbnail_dir:
+        config.pipeline.thumbnail_dir = os.path.join(tempfile.gettempdir(),
+                                                     "tvidz-thumbnails")
+    if args.host:
+        config.service.host = args.host
+    if args.port:
+        config.service.port = args.port
+    if args.db:
+        config.store.url = args.db
+    if args.s3_endpoint:
+        config.service.s3_endpoint = args.s3_endpoint
+
+    s3, sqs = build_clients(config, args.fake_aws)
+    if not args.fake_aws:
+        bootstrap(config, s3, sqs)
+
+    app = create_app(config=config, store=Store(config.store.url), s3=s3,
+                     sqs=sqs, device=device)
+    app.device_ready = False
+    # Serve at once (orchestrators see the port up, /healthz says
+    # "warming"), then warm the device from the main thread.
+    _server, thread = wsgi.start_server_thread(
+        app.wsgi, config.service.host, config.service.port)
+    log("entrypoint",
+        f"inspector serving on {config.service.host}:{config.service.port} "
+        "(device warming)")
+    warmup_device(config, device)
+    app.device_ready = True
+    if not args.no_poller:
+        app.start_poller()
+    log("entrypoint", "inspector ready")
+    thread.join()
+
+
+if __name__ == "__main__":
+    main()

@@ -49,8 +49,8 @@ def device_corpus_from_reference(host_mirrors: Dict[str, object],
     """A port DeviceCorpus holding the given reference host mirrors
     (``_ts``, ``_ts_len``, ``_ts_vid``, ``_fp``, ``_fp_vid`` and the counts;
     ``_ts_free`` when given, else rebuilt from the tombstoned rows in row
-    order). The alignment-bucket mirror
-    is not carried (fragment search is not in this slice)."""
+    order). The alignment-bucket mirror is not carried: such a corpus
+    locates no fragment until videos are appended to it."""
     ts = np.array(host_mirrors["_ts"], np.float32)
     fp = np.array(host_mirrors["_fp"], np.uint32)
     words = fp.shape[1]
