@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
 """Quickest proof that tvidz_tpu_torch runs on the GPU: build its kernels,
-check each against its plain PyTorch version (K4's five modes and K2's
-frame_min-only switch exactly, ties across CTAs included), drive ``ingest``
-/ ``analyze`` / ``search`` through the port's CLI, the two corpus scans
-(``search_fingerprints``, ``nearest_video_counts``), the inspector service
-(uploads over the fake S3 -> SQS path, SSE, fragment and video search) and
-a short ``bench`` against a 2^20-fingerprint corpus, and time it. Launch
-counts are zeroed before and read after each of those paths.
+check each against its plain PyTorch version (K3, K4's five modes and K2's
+frame_min-only switch exactly, ties across K4's CTA ranges included), drive
+``ingest`` / ``analyze`` / ``search`` through the port's CLI, the two
+corpus scans (``search_fingerprints``, ``nearest_video_counts``), the
+inspector service (uploads over the fake S3 -> SQS path, SSE, fragment and
+video search) and a short ``bench`` against a 2^20-fingerprint corpus, and
+time it. Launch counts are zeroed before and read after each of those paths.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against OLD_ROOT
+
+``--against`` runs only the race of this tree against another checkout of
+the repo (``git archive <commit> | tar -x -C OLD_ROOT``; in a directory
+``.gitignore`` lists): four fresh processes, old, new, new, old, each
+timing K3 and K4 at the race shapes (torch.profiler device time and CUDA
+events) and one analyze of a 1024-frame upload, their outputs held equal
+across the trees.
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and on any
 failed phase. Each phase prints one line; the line before the last is
@@ -19,6 +27,7 @@ failed phase. Each phase prints one line; the line before the last is
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -90,19 +99,76 @@ def interleaved_ms(kernel_fn, plain_fn, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call — kernels, copies and memsets summed from a
-    torch.profiler trace. Unlike ``cuda_ms`` it leaves out the gaps while
-    the host issues launches, which dominate calls this short."""
+def _trace(fn, reps: int) -> dict:
+    """{device item: (us, count)} of one torch.profiler window of ``reps``
+    calls, recorded after a warm-up window of as many (a window's first
+    launches are the ones the tracer misses)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / reps / 1e3
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+# Device items a window recorded in fewer than half its calls, by name:
+# not the calls' work (the profiler's own, such as its buffer requests).
+SET_ASIDE = set()
+
+
+def device_ms_by_kernel(fn, reps: int, tries: int = 6) -> dict:
+    """Device ms per call of each kernel, copy and memset ``fn`` runs, by
+    name, from torch.profiler. Unlike ``cuda_ms`` it leaves out the gaps
+    while the host issues launches, which dominate calls this short. A
+    window of ``reps`` calls may miss some launches (on the H100, 20-call
+    windows recorded 19 and 18 of a kernel's 20), so an item that ran k
+    times per call in all but a tenth of the calls (at least one) costs k
+    times its mean per launch; an item seen in fewer than half the calls
+    is set aside (``SET_ASIDE``); a window that lost more of an item is
+    dropped. A window counts only when another one recorded the same items
+    as many times per call, and the result is the mean of those two.
+    Fails after ``tries`` windows with no such pair."""
+    import torch
+
+    fn()                                 # one-time work stays out
+    torch.cuda.synchronize()
+    seen, t = [], {}
+    for _ in range(tries):
+        t = _trace(fn, reps)
+        work = {}
+        for key, (us, count) in t.items():
+            per_call = round(count / reps)
+            if not per_call:
+                SET_ASIDE.add(key[:60])
+            elif per_call * (reps - max(1, reps // 10)) <= count <= per_call * reps:
+                work[key] = (us / count * per_call, per_call)
+            else:
+                work = {}                # this window lost launches
+                break
+        if not work:
+            continue
+        launches = {k: n for k, (_, n) in work.items()}
+        for w in seen:
+            if {k: n for k, (_, n) in w.items()} == launches:
+                return {k[:60]: (us + w[k][0]) / 2 / 1e3
+                        for k, (us, _) in work.items()}
+        seen.append(work)
+    raise SmokeFailure(
+        f"torch.profiler recorded no two matching windows of device work in "
+        f"{tries} tries of {reps} calls; the last window's items and counts: "
+        f"{sorted((k[:50], c) for k, (_, c) in t.items())}")
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call: ``device_ms_by_kernel`` summed."""
+    return sum(device_ms_by_kernel(fn, reps).values())
 
 
 def device_busy(prof, wall_s: float) -> dict:
@@ -112,6 +178,9 @@ def device_busy(prof, wall_s: float) -> dict:
     ops = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
                   if e.self_device_time_total > 0), reverse=True)
     busy_us = sum(us for us, _ in ops)
+    if busy_us == 0:                     # the profiler recorded nothing
+        return {"device_busy_ms": None, "device_idle_share": None,
+                "device_top_ops_ms": [], "device_trace": "empty: not measured"}
     return {"device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1 - busy_us / (wall_s * 1e6),
             "device_top_ops_ms": [[k[:80], us / 1e3] for us, k in ops[:5]]}
@@ -220,9 +289,35 @@ TILE_TIES = {13: (256 * 3000 + 17, 256 * 5 + 200),
              15: (256 * 101, 256 * 100 + 255),
              19: (256 * 50 + 200, 256 * 50 + 10)}
 GATE_TIE = (600_000, 300_001)                   # q[17] ^ 3 in both words: 4
+# K4 gives each CTA a contiguous range of 256-row tiles, walked in
+# ascending order: a copy in the same row of the next tile (the same
+# thread, later in its range); and (``planted``) copies on both sides of
+# range edges of the grid each argmin mode launches on this card.
+THREAD_TIE = {20: (256 * 2001 + 77, 256 * 2000 + 77)}
+ARGMIN_MODES = ("full", "full_cols", "twophase", "query_nearest")
 
 
-def scan_inputs(dev):
+def planted(dev) -> tuple:
+    """(query -> rows holding an exact copy, the lower one the argmin;
+    {mode: K4's grid for SCAN_N rows}): TILE_TIES, THREAD_TIE and ties
+    across the range edges of CTAs 1 and grid / 2 of each argmin mode's
+    grid."""
+    from tvidz_tpu_torch.ops import hamming
+
+    tiles = SCAN_N // 256
+    grids = {mode: hamming.corpus_scan_tc_grid(mode, SCAN_N, dev)
+             for mode in hamming.MODES}
+    check(all(1 < g <= tiles for g in grids.values()),
+          f"K4 grids {grids} for {tiles} tiles: no range edge to plant at")
+    edges = sorted({256 * (tiles * c // g) for g in (grids[m] for m in ARGMIN_MODES)
+                    for c in (1, g // 2)})
+    return {**TILE_TIES, **THREAD_TIE,
+            **{21 + i: (e, e - 1) for i, e in enumerate(edges)}}, grids
+
+
+def scan_inputs(dev, ties):
+    """(q, corpus) at (SCAN_M, SCAN_N), seeded, with sentinel rows, exact
+    and near ties, and a copy of q[k] at each row of ``ties[k]``."""
     import numpy as np
     import torch
 
@@ -234,22 +329,21 @@ def scan_inputs(dev):
     corpus[[70_000, 900_000, 900_001]] = q[5] ^ np.uint32(1)   # dist-2 ties
     corpus[[2048 * 7 + 1023, 2048 * 7 + 1024]] = q[9]  # across a CTA edge
     q[11] = 0xFFFFFFFF                              # nearest are sentinels
-    # K4 takes 256-row tiles in reverse order (the last tile first): a lower
-    # copy sits in a later-running CTA far away, in the adjacent tile, and
-    # in another warp of the same tile; a dist-4 tie for the two-phase gate.
-    for k, rows in TILE_TIES.items():
+    # Copies of q[k] at ``ties[k]`` (TILE_TIES, THREAD_TIE, ``planted``'s
+    # range edges); a dist-4 tie.
+    for k, rows in ties.items():
         corpus[list(rows)] = q[k]
     corpus[list(GATE_TIE)] = q[17] ^ np.uint32(3)
     to = lambda a: torch.from_numpy(a.view(np.int32)).to(dev)  # noqa: E731
     return to(q), to(corpus)
 
 
-def check_planted(name, q_min, q_arg, n=SCAN_N):
-    """The planted answers of ``scan_inputs`` (M >= 20)."""
+def check_planted(name, ties, q_min, q_arg, n=SCAN_N):
+    """The planted answers of ``scan_inputs(dev, ties)`` (M > max(ties))."""
     check(int(q_min[3]) == 0 and int(q_arg[3]) == 1000, f"{name} missed the planted tie")
     check(int(q_min[5]) == 2 and int(q_arg[5]) == 70_000, f"{name} missed a dist-2 tie")
     check(int(q_arg[9]) == 2048 * 7 + 1023, f"{name} tie across a CTA edge")
-    for k, rows in TILE_TIES.items():
+    for k, rows in ties.items():
         check(int(q_min[k]) == 0 and int(q_arg[k]) == min(rows),
               f"{name} tie of q[{k}] across tiles: {int(q_arg[k])} != {min(rows)}")
     check(int(q_min[17]) == 4 and int(q_arg[17]) == min(GATE_TIE),
@@ -264,7 +358,8 @@ def check_corpus_scan(dev):
 
     from tvidz_tpu_torch.ops import hamming
 
-    q, corpus = scan_inputs(dev)
+    ties, _ = planted(dev)
+    q, corpus = scan_inputs(dev, ties)
     fk, mk, ak = hamming.corpus_min_distance(q, corpus)
     fp, mp, ap = hamming.corpus_min_distance_plain(q, corpus)
     mk2, ak2 = hamming.corpus_min_distance(q, corpus, frame_min=False)[1:]
@@ -275,24 +370,40 @@ def check_corpus_scan(dev):
     check(err == 0 and torch.equal(mk2, mp) and torch.equal(ak2, ap)
           and torch.equal(fk2, fp),
           f"K2 differs from the plain version (max abs err {err})")
-    check_planted("K2", mk, ak)
+    check_planted("K2", ties, mk, ak)
     phase("k2_vs_plain", m=SCAN_M, n=SCAN_N, max_abs_err=err,
           outputs_exact=True, frame_min_only_exact=True)
     return float(err)
 
 
+def more_queries(q, m):
+    """``q`` followed by seeded random queries, ``m`` rows in all."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 5)
+    extra = rng.integers(0, 2 ** 32, size=(m - q.shape[0], 2), dtype=np.uint32)
+    return torch.cat([q, torch.from_numpy(extra.view(np.int32)).to(q.device)])
+
+
 def check_scan_modes(dev):
     """Every K4 mode and K2's frame_min-only switch against the plain XOR
     scan, exactly: at M=128, N=2^20 with the planted ties; at M=37; at N
-    not a multiple of K4's 256-row tile; on a corpus of one repeated row
-    (every query ties with every row: the argmin must be row 0)."""
+    not a multiple of K4's 256-row tile; at M=1024 (a whole video) and
+    M=16384 (the largest); at N=1 and at N below one CTA's range; on a
+    corpus of one repeated row (every query ties with every row: the
+    argmin must be row 0)."""
     import torch
 
     from tvidz_tpu_torch.ops import hamming
 
-    q, corpus = scan_inputs(dev)
+    ties, grids = planted(dev)
+    q, corpus = scan_inputs(dev, ties)
     cases = [("m128", q, corpus), ("m37", q[:37], corpus),
              ("n_ragged", q, corpus[:SCAN_N - 101]),
+             ("m1024", more_queries(q, 1024), corpus),
+             ("m16384", more_queries(q, 16384), corpus[:1 << 16]),
+             ("n1", q, corpus[:1]), ("n3000", q, corpus[:3000]),
              ("all_tied", q, corpus[1000:1001].repeat(1 << 16, 1))]
     err, checked = 0, []
     for name, qq, cc in cases:
@@ -307,10 +418,10 @@ def check_scan_modes(dev):
                     err = max(err, (o - w).abs().max().item())
                     check(torch.equal(o, w),
                           f"{variant} differs from the plain version at {name}")
-        if name != "all_tied" and qq.shape[0] > 20:
-            for mode in ("full", "full_cols", "twophase", "query_nearest"):
-                check_planted(f"K4 {mode} ({name})", *got[f"k4_{mode}"][1:],
-                              n=cc.shape[0])
+        if name in ("m128", "m37", "n_ragged", "m1024"):
+            for mode in ARGMIN_MODES:
+                check_planted(f"k4 {mode} ({name})", ties,
+                              *got[f"k4_{mode}"][1:], n=cc.shape[0])
         if name == "all_tied":
             check(int(want[2].max()) == 0, "all-tied corpus: plain argmin not 0")
         checked.append({"case": name, "m": qq.shape[0], "n": cc.shape[0]})
@@ -319,8 +430,9 @@ def check_scan_modes(dev):
     want = hamming.corpus_min_distance_plain(q, corpus)
     check(all(torch.equal(a, b) for a, b in zip(pm1, want)),
           "the ±1 plain version differs from the XOR plain version")
-    phase("k4_vs_plain", modes=list(hamming.MODES) + ["k2_frame_min"],
-          max_abs_err=err, exact=True, cases=checked)
+    phase("k4_vs_plain", modes=list(hamming.MODES), also=["k2_frame_min"],
+          max_abs_err=err, exact=True, cases=checked, grids_at_2_20=grids,
+          range_edge_ties={k: v for k, v in ties.items() if k > 20})
     return float(err)
 
 
@@ -395,9 +507,182 @@ def check_fragment_search(dev):
                       f"K3 batch row {q} differs from its single call")
         checked.append({"shape": name, "q_tq_pad_v_tc": list(shape),
                         "max_score": int(ks.max())})
+    # At shape (a): thresholds 0 and 40 (nearly every pair matches), a
+    # bucket of identical rows queried with that row (every pair matches),
+    # and still runs inside random videos (blocks that match whole beside
+    # blocks that match in part), at thresholds 10 and 40.
+    (qs, q_lens, corpus, lens), _ = fragment_inputs(dev, FRAG_A, SEED + 3)
+    dense_c, dense_q = dense_inputs(corpus, qs)
+    runs_c, runs_q = still_runs(corpus, qs)
+    for name, q_, c_, thr in (("thr0", qs, corpus, 0), ("thr40", qs, corpus, 40),
+                              ("dense", dense_q, dense_c, FRAG_THR),
+                              ("still_runs", runs_q, runs_c, FRAG_THR),
+                              ("still_runs_thr40", runs_q, runs_c, 40)):
+        got = align.fragment_search_batch(q_, q_lens, c_, lens, thr)
+        want = align.fragment_search_batch_plain(q_, q_lens, c_, lens, thr)
+        torch.cuda.synchronize()
+        err = max(err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K3 differs from the plain version at (a) {name}")
+        if name == "dense":
+            check(int(got[1][0, 0]) == int(q_lens[0]) and int(got[1][0, 6]) == 0,
+                  f"K3 dense bucket: {got[1][0, :8].tolist()}")
+        checked.append({"shape": f"a_{name}", "threshold": thr,
+                        "max_score": int(got[1].max())})
     phase("k3_vs_plain", threshold=FRAG_THR, max_abs_err=err, exact=True,
           shapes=checked)
     return float(err)
+
+
+def dense_inputs(corpus, qs):
+    """A bucket of ``corpus``'s shape holding one row everywhere, and
+    ``qs``'s shape of the same row: every valid pair matches (a static or
+    black scene)."""
+    row = corpus[0, 0]
+    return (row.expand(corpus.shape).contiguous(),
+            row.expand(qs.shape).contiguous())
+
+
+def still_runs(corpus, qs):
+    """``corpus`` and ``qs`` with runs of one row (a still scene) of
+    seeded lengths and places in every fourth video and in each query."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    corpus, qs = corpus.clone(), qs.clone()
+    row = corpus[0, 0].clone()
+    for v in range(0, corpus.shape[0], 4):
+        a = int(rng.integers(0, corpus.shape[1]))
+        corpus[v, a:a + int(rng.integers(1, 700))] = row
+    for q in range(qs.shape[0]):
+        a = int(rng.integers(0, qs.shape[1]))
+        qs[q, a:a + int(rng.integers(1, 500))] = row
+    return corpus, qs
+
+
+# -- the race against another tree (--against) ----------------------------------
+
+# (label, M, N): K4 at M=128 against the smoke corpus (2^20) and 2^24
+# random rows, and at M=1024 (a whole video, ``search_fingerprints``).
+RACE_K4 = (("m128_2^20", 128, SCAN_N), ("m128_2^24", 128, 1 << 24),
+           ("m1024_2^20", 1024, SCAN_N))
+# K3 at the three parity shapes and on the bucket of identical rows.
+RACE_K3 = (("a", FRAG_A), ("b", FRAG_B), ("c", FRAG_C), ("a_dense", FRAG_A))
+
+
+def digest(outs) -> str:
+    """A short hash of a kernel's outputs, to hold two trees equal."""
+    h = hashlib.sha256()
+    for t in outs:
+        if t is not None:
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def measure_arm(root: str) -> dict:
+    """One arm of the race, in a fresh process: the port found at ``root``
+    builds its kernels, analyzes a short upload and then a 1024-frame one
+    against a prefilled 2^20-fingerprint store (``time_analyze``), then
+    times K4 (every mode, ``RACE_K4``) and K3 (``RACE_K3``):
+    device ms from torch.profiler and per-call ms from CUDA events, with a
+    digest of each output."""
+    import torch
+
+    import tvidz_tpu_torch
+    from tvidz_tpu_torch import backend, cli
+    from tvidz_tpu_torch.decode import write_synthetic_y4m
+    from tvidz_tpu_torch.ops import align, hamming
+
+    pkg = os.path.dirname(os.path.realpath(tvidz_tpu_torch.__file__))
+    check(pkg == os.path.join(os.path.realpath(root), "tvidz_tpu_torch"),
+          f"arm for {root} imported the port from {pkg}")
+    dev = backend.resolve_device("cuda")
+    backend.build_all()
+    arm = {"root": root, "kernels": [k.repo_source for k in backend.KERNELS]}
+    work = tempfile.mkdtemp(prefix="tvidz_chip_race_")
+    os.environ["TVIDZ_TMP_DIR"] = os.path.join(work, "tmp")
+    os.makedirs(os.environ["TVIDZ_TMP_DIR"])
+    try:
+        db = os.path.join(work, "corpus.db")
+        prefill_store(db)
+        # A short upload first, so that the process's first CUDA calls
+        # (library loads, the machine's cold file cache) are not timed.
+        warm = os.path.join(work, "warm", "warm.y4m")
+        os.makedirs(os.path.dirname(warm))
+        write_synthetic_y4m(warm, num_frames=256, height=180, width=320,
+                            cut_frames=(100,), seed=9)
+        analyzer, _, _ = cli._local_session(f"sqlite:///{db}", "cuda")
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(analyzer.analyze(os.path.dirname(warm), "warm.y4m").status
+                  == "done", "race arm: the warm-up analyze failed")
+        arm["analyze"] = time_analyze(work, f"sqlite:///{db}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def timed(fn, reps):
+        outs = fn()
+        return {"device_ms": device_ms(fn, reps), "ms": cuda_ms(fn, reps),
+                "digest": digest(outs)}
+
+    q, corpus = scan_inputs(dev, {**TILE_TIES, **THREAD_TIE})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    big = torch.randint(-2 ** 31, 2 ** 31, (1 << 24, 2), dtype=torch.int32,
+                        device=dev, generator=gen)
+    rows = {}
+    for label, m, n in RACE_K4:
+        cc = corpus if n == SCAN_N else big
+        qq = more_queries(q, m) if m > q.shape[0] else q
+        for mode in hamming.MODES:
+            rows[f"K4 {mode} {label}"] = timed(
+                lambda: hamming.corpus_scan_tc(qq, cc, mode),
+                20 if n == SCAN_N else 5)
+    del big
+    for name, shape in RACE_K3:
+        (qs, ql, c, ln), _ = fragment_inputs(dev, shape, SEED + 3)
+        if name == "a_dense":
+            c, qs = dense_inputs(c, qs)
+        rows[f"K3 {name}"] = timed(
+            lambda: align.fragment_search_batch(qs, ql, c, ln, FRAG_THR), 5)
+    arm["rows"] = rows
+    return arm
+
+
+def race_against(old_root: str, smi: str) -> None:
+    """This tree against the one at ``old_root``: four fresh processes in
+    turns (old, new, new, old), each ``measure_arm``; every output equal
+    across all four; old and new each the mean of their two arms."""
+    new_root = os.path.dirname(os.path.abspath(__file__))
+    arms = []
+    for root in (old_root, new_root, new_root, old_root):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--measure", root],
+            capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"race arm {root} failed (exit "
+                                    f"{proc.returncode}): {proc.stderr[-3000:]}")
+        arms.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    mean = lambda a, b: (a + b) / 2  # noqa: E731
+    rows = []
+    for key in arms[0]["rows"]:
+        got = [arm["rows"][key] for arm in arms]
+        check(len({g["digest"] for g in got}) == 1,
+              f"race: {key} differs between the trees")
+        old_dev = mean(got[0]["device_ms"], got[3]["device_ms"])
+        new_dev = mean(got[1]["device_ms"], got[2]["device_ms"])
+        rows.append({"case": key, "old_device_ms": old_dev,
+                     "new_device_ms": new_dev, "old_over_new": old_dev / new_dev,
+                     "old_ms": mean(got[0]["ms"], got[3]["ms"]),
+                     "new_ms": mean(got[1]["ms"], got[2]["ms"]),
+                     "device_ms_by_arm": [g["device_ms"] for g in got]})
+    analyze = [{"tree": "old" if i in (0, 3) else "new",
+                "frames_per_s": a["analyze"]["analyze_frames_per_s"],
+                "stages": a["analyze"]["analyze_stages"],
+                "traced_device_busy_ms": a["analyze"]["device_busy_ms"],
+                "traced_idle_share": a["analyze"]["device_idle_share"]}
+               for i, a in enumerate(arms)]
+    phase("race", card=smi, old=old_root, new=new_root,
+          order=["old", "new", "new", "old"], rows=rows, analyze=analyze,
+          kernels={"old": arms[0]["kernels"], "new": arms[1]["kernels"]})
 
 
 # -- phase 6: the main path --------------------------------------------------------
@@ -731,6 +1016,7 @@ def time_analyze(work: str, url: str) -> dict:
 
     n = 1024
     paths = []
+    os.makedirs(os.path.join(work, "fresh"), exist_ok=True)
     for name, seed, cuts in (("epsilon", 5, (100, 500, 900)),
                              ("zeta", 6, (110, 520, 910))):
         paths.append(os.path.join(work, "fresh", f"{name}.y4m"))
@@ -757,20 +1043,108 @@ def time_analyze(work: str, url: str) -> dict:
             "traced_analyze_s": traced_s, **device_busy(prof, traced_s)}
 
 
-def main() -> int:
+def time_kernels(dev) -> dict:
+    """K1-K4 at the main path's shapes: per call by CUDA events, interleaved
+    with the plain version where one is timed, and the kernels on the
+    device from torch.profiler. The plain versions' device time is not
+    taken: with thousands of small launches a call, their windows lose
+    launches (on the H100 they read 0.4-0.6 of an unwarmed window's)."""
     import torch
 
+    from tvidz_tpu_torch.ops import align, fused, hamming, phash
+
+    left, right = phash.hash_operators(HEIGHT, WIDTH, dev)
+    x = torch.randint(0, 256, (FRAMES, HEIGHT, WIDTH), dtype=torch.uint8,
+                      device=dev)
+    carry = fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev)
+    k1 = lambda: fused.fingerprint_block(x, carry, left, right)  # noqa: E731
+    k1_plain = lambda: fused.fingerprint_block_plain(  # noqa: E731
+        x, carry, left, right)
+    k1_ms, k1_plain_ms = interleaved_ms(k1, k1_plain, 20)
+    q, corpus = scan_inputs(dev, planted(dev)[0])
+    k2 = lambda: hamming.corpus_min_distance(q, corpus, frame_min=False)  # noqa: E731
+    k2_plain = lambda: hamming.corpus_min_distance_plain(  # noqa: E731
+        q, corpus, False)
+    k2_ms, k2_plain_ms = interleaved_ms(k2, k2_plain, 10)
+    k2_fmin = lambda: hamming.corpus_frame_min_xor(q, corpus)  # noqa: E731
+    # K4: each mode per call and on the device; the plain ±1 version
+    # beside the two modes on the main path (interleaved with them).
+    k4_times = {}
+    for mode in hamming.MODES:
+        k4 = lambda mode=mode: hamming.corpus_scan_tc(q, corpus, mode)  # noqa: E731
+        k4_plain = lambda mode=mode: hamming.corpus_scan_pm1_plain(  # noqa: E731
+            q, corpus, mode)
+        t = {"device_ms": device_ms(k4, 20)}
+        if mode in ("frame_min", "query_nearest"):
+            t["ms"], t["plain_ms"] = interleaved_ms(k4, k4_plain, 5)
+        else:
+            k4()
+            t["ms"] = cuda_ms(k4, 20)
+        k4_times[mode] = t
+    k3_times = {}
+    for name, shape in (("a", FRAG_A), ("b", FRAG_B)):
+        (qs, ql, c, ln), _ = fragment_inputs(dev, shape, SEED + 3)
+        k3 = lambda: align.fragment_search_batch(qs, ql, c, ln, FRAG_THR)  # noqa: E731
+        k3_plain = lambda: align.fragment_search_batch_plain(  # noqa: E731
+            qs, ql, c, ln, FRAG_THR)
+        ms, plain_ms = interleaved_ms(k3, k3_plain, 3)
+        k3_times[name] = {"ms": ms, "plain_ms": plain_ms,
+                          "device_ms": device_ms(k3, 10),
+                          # the scan, and the key set-up and unpack
+                          "device_ms_by_kernel": device_ms_by_kernel(k3, 10)}
+        if name == "a":
+            # Every (query row, corpus row) pair that can overlap.
+            k3_pairs = int((ql.to(torch.int64).sum() * ln.to(torch.int64).sum()))
+            k3_bytes = sum(t.numel() * t.element_size() for t in (qs, ql, c, ln)) \
+                + 2 * 4 * shape[0] * shape[2]
+            # The bucket of identical rows: every pair matches.
+            dc, dq = dense_inputs(c, qs)
+            k3_times["a_dense"] = {"device_ms": device_ms(
+                lambda: align.fragment_search_batch(dq, ql, dc, ln, FRAG_THR), 10)}
+    return {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
+            "k1_device_ms": device_ms(k1, 20),
+            "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
+            "k2_device_ms": device_ms(k2, 10),
+            "k2_frame_min_device_ms": device_ms(k2_fmin, 20),
+            "k2_shape": [SCAN_M, SCAN_N], "k3": k3_times, "k4": k4_times,
+            "k4_shape": [SCAN_M, SCAN_N], "k3_pairs": k3_pairs,
+            "k3_bytes": k3_bytes}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="OLD_ROOT",
+                    help="race this tree against the checkout at OLD_ROOT")
+    ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.abspath(args.measure or root))
     # The analyzer's per-step log lines would bury the phase lines.
     os.environ.setdefault("TVIDZ_LOG_LEVEL", "WARNING")
+    if args.measure:                     # one arm of ``race_against``
+        print(json.dumps(measure_arm(args.measure)))
+        return 0
+    smi = nvidia_smi()
+    if args.against:
+        check(os.path.isdir(os.path.join(args.against, "tvidz_tpu_torch")),
+              f"--against {args.against}: no tvidz_tpu_torch there")
+        race_against(os.path.abspath(args.against), smi)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     from tvidz_tpu_torch import backend
     from tvidz_tpu_torch.ops import align, fused, hamming, phash
 
-    smi = nvidia_smi()
     dev = backend.resolve_device("cuda")
     phase("environment", torch=torch.__version__, cuda=torch.version.cuda,
           python=sys.version.split()[0], card=smi,
@@ -778,7 +1152,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     backend.build_all()
-    ptxas = [ln.strip() for k in backend.KERNELS for ln in k.build_log.splitlines()
+    ptxas = [f"{k.name}: {ln.strip()}" for k in backend.KERNELS
+             for ln in k.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     phase("build", seconds=time.perf_counter() - t0,
           kernels=[k.repo_source for k in backend.KERNELS], ptxas=ptxas)
@@ -788,6 +1163,7 @@ def main() -> int:
     k3_err = check_fragment_search(dev)
 
     k4_err = check_scan_modes(dev)
+    times = time_kernels(dev)
 
     work = tempfile.mkdtemp(prefix="tvidz_chip_smoke_")
     os.environ["TVIDZ_TMP_DIR"] = os.path.join(work, "tmp")
@@ -797,59 +1173,8 @@ def main() -> int:
         path_launches["service"] = drive_service(work, url, smi)
         path_launches["bench"] = drive_bench(smi)
 
-        left, right = phash.hash_operators(HEIGHT, WIDTH, dev)
-        x = torch.randint(0, 256, (FRAMES, HEIGHT, WIDTH), dtype=torch.uint8,
-                          device=dev)
-        carry = fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev)
-        k1 = lambda: fused.fingerprint_block(x, carry, left, right)  # noqa: E731
-        k1_plain = lambda: fused.fingerprint_block_plain(  # noqa: E731
-            x, carry, left, right)
-        k1_ms, k1_plain_ms = interleaved_ms(k1, k1_plain, 20)
-        q, corpus = scan_inputs(dev)
-        k2 = lambda: hamming.corpus_min_distance(q, corpus, frame_min=False)  # noqa: E731
-        k2_plain = lambda: hamming.corpus_min_distance_plain(  # noqa: E731
-            q, corpus, False)
-        k2_ms, k2_plain_ms = interleaved_ms(k2, k2_plain, 10)
-        k2_fmin = lambda: hamming.corpus_frame_min_xor(q, corpus)  # noqa: E731
-        # K4: each mode per call and on the device; the plain ±1 version
-        # beside the two modes on the main path (interleaved with them).
-        k4_times = {}
-        for mode in hamming.MODES:
-            k4 = lambda mode=mode: hamming.corpus_scan_tc(q, corpus, mode)  # noqa: E731
-            k4_plain = lambda mode=mode: hamming.corpus_scan_pm1_plain(  # noqa: E731
-                q, corpus, mode)
-            t = {"device_ms": device_ms(k4, 20)}
-            if mode in ("frame_min", "query_nearest"):
-                t["ms"], t["plain_ms"] = interleaved_ms(k4, k4_plain, 5)
-                t["plain_device_ms"] = device_ms(k4_plain, 2)
-            else:
-                k4()
-                t["ms"] = cuda_ms(k4, 20)
-            k4_times[mode] = t
-        k3_times = {}
-        for name, shape in (("a", FRAG_A), ("b", FRAG_B)):
-            (qs, ql, c, ln), _ = fragment_inputs(dev, shape, SEED + 3)
-            k3 = lambda: align.fragment_search_batch(qs, ql, c, ln, FRAG_THR)  # noqa: E731
-            k3_plain = lambda: align.fragment_search_batch_plain(  # noqa: E731
-                qs, ql, c, ln, FRAG_THR)
-            ms, plain_ms = interleaved_ms(k3, k3_plain, 3)
-            k3_times[name] = {"ms": ms, "plain_ms": plain_ms,
-                              "device_ms": device_ms(k3, 10),
-                              "plain_device_ms": device_ms(k3_plain, 2)}
-            if name == "a":
-                # Every (query row, corpus row) pair that can overlap.
-                k3_pairs = int((ql.to(torch.int64).sum() * ln.to(torch.int64).sum()))
-                k3_bytes = sum(t.numel() * t.element_size() for t in (qs, ql, c, ln)) \
-                    + 2 * 4 * shape[0] * shape[2]
-        phase("timings", card=smi, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
-              k1_device_ms=device_ms(k1, 20),
-              k1_plain_device_ms=device_ms(k1_plain, 20),
-              k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
-              k2_device_ms=device_ms(k2, 10),
-              k2_plain_device_ms=device_ms(k2_plain, 3),
-              k2_frame_min_device_ms=device_ms(k2_fmin, 20),
-              k2_shape=[SCAN_M, SCAN_N], k3=k3_times, k4=k4_times,
-              k4_shape=[SCAN_M, SCAN_N], **time_analyze(work, url))
+        phase("timings", card=smi, **times, **time_analyze(work, url),
+              profiler_set_aside=sorted(SET_ASIDE))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -875,13 +1200,14 @@ def main() -> int:
         hamming.K2.name: bound(8 * n + 16 * m, 2 * 64 * m * n, INT8_TC_OPS_PER_S),
         hamming.K4.name: bound(8 * n + 16 * m, 2 * 64 * m * n, INT8_TC_OPS_PER_S),
         # K3 at shape (a): 64 int8 multiply-adds per overlapping pair.
-        align.K3.name: bound(k3_bytes, 2 * 64 * k3_pairs, INT8_TC_OPS_PER_S),
+        align.K3.name: bound(times["k3_bytes"], 2 * 64 * times["k3_pairs"],
+                             INT8_TC_OPS_PER_S),
     }
-    timed = {fused.K1.name: (k1_err, k1_ms, k1_plain_ms),
-             hamming.K2.name: (k2_err, k2_ms, k2_plain_ms),
-             align.K3.name: (k3_err, k3_times["a"]["ms"], k3_times["a"]["plain_ms"]),
-             hamming.K4.name: (k4_err, k4_times["query_nearest"]["ms"],
-                               k4_times["query_nearest"]["plain_ms"])}
+    k3_a, k4_qn = times["k3"]["a"], times["k4"]["query_nearest"]
+    timed = {fused.K1.name: (k1_err, times["k1_ms"], times["k1_plain_ms"]),
+             hamming.K2.name: (k2_err, times["k2_ms"], times["k2_plain_ms"]),
+             align.K3.name: (k3_err, k3_a["ms"], k3_a["plain_ms"]),
+             hamming.K4.name: (k4_err, k4_qn["ms"], k4_qn["plain_ms"])}
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.repo_source,
          "replaces": k.replaces, "launches": launches[k.name],

@@ -92,44 +92,101 @@ def test_fragment_search_kernel_matches_plain(dev, v, tc, tq_pad):
     t = lambda a: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32  # noqa: E731
                                    else a).to(dev)
     before = align.K3.launches
-    for thr in (0, 6):
+    for thr in (0, 6, 40):
         got = align.fragment_search_batch(t(qs), t(q_lens), t(corpus), t(lens), thr)
         want = align.fragment_search_batch_plain(t(qs), t(q_lens), t(corpus),
                                                  t(lens), thr)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+        if thr == 40:
+            continue        # nearly every pair matches: no zero rows
         one = align.fragment_search(t(qs[1]), int(q_lens[1]), t(corpus),
                                     t(lens), thr)
         assert torch.equal(one[0], got[0][1]) and torch.equal(one[1], got[1][1])
         assert int(got[1][0, 4]) == q_lens[0] and int(got[0][0, 4]) == 3
         assert (got[0][2][got[1][2] == 0] == -(tq_pad - 1)).all()
-    assert align.K3.launches == before + 4
+    assert align.K3.launches == before + 5
+
+
+@pytest.mark.parametrize("runs", [False, True], ids=["identical", "static_runs"])
+@pytest.mark.parametrize("thr", [0, 10, 33])
+def test_fragment_search_kernel_dense_bucket(dev, thr, runs):
+    """A bucket of identical rows (a static scene): every valid pair
+    matches, so every diagonal counts its overlap; a short and an empty
+    video, a query shorter than its padding. With ``runs`` the still rows
+    are runs inside random videos, so warp blocks that match whole sit
+    beside blocks that match in part."""
+    row = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    corpus = np.tile(row, (6, 700, 1))
+    lens = np.asarray([700, 700, 650, 3, 0, 700], np.int32)
+    qs = np.tile(row, (2, 320, 1))
+    qs[1, 5] ^= np.uint32(0xF)                       # 4 bits off: thr decides
+    q_lens = np.asarray([320, 250], np.int32)
+    if runs:
+        rng = np.random.default_rng(thr)
+        noise = rng.integers(0, 2 ** 32, size=corpus.shape, dtype=np.uint32)
+        keep = np.zeros(corpus.shape[:2], bool)
+        keep[0, 100:517] = keep[1, :333] = keep[2, 301:] = keep[5, 77:78] = True
+        corpus = np.where(keep[..., None], corpus, noise)
+        qs[0, :40] = rng.integers(0, 2 ** 32, size=(40, 2), dtype=np.uint32)
+    t = lambda a: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32  # noqa: E731
+                                   else a).to(dev)
+    got = align.fragment_search_batch(t(qs), t(q_lens), t(corpus), t(lens), thr)
+    want = align.fragment_search_batch_plain(t(qs), t(q_lens), t(corpus),
+                                             t(lens), thr)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if not runs:
+        assert int(got[1][0, 0]) == 320 and int(got[1][0, 4]) == 0
+
+
+def _range_edges(dev, n):
+    """Rows where the ranges of K4's CTAs 1 and grid / 2 begin, for the
+    grid each argmin mode launches on this card: CTA c walks the 256-row
+    tiles [tiles c / grid, tiles (c + 1) / grid) in ascending order."""
+    tiles = -(-n // 256)
+    grids = {hamming.corpus_scan_tc_grid(mode, n, dev)
+             for mode in ("full", "full_cols", "twophase", "query_nearest")}
+    assert all(1 <= g <= tiles for g in grids)
+    return sorted({256 * (tiles * c // g) for g in grids if g > 1
+                   for c in (1, g // 2)})
 
 
 def _scan_case(dev, m, n, seed=12):
-    """(q, corpus) with ties in K4's reversed 256-row tiles: a lower copy in
-    a far tile, in the adjacent tile, in another warp of its tile; sentinel
-    rows and a distance-4 tie."""
+    """(q, corpus, expected q_arg of the planted rows) with ties: a lower
+    copy in a far tile, in the adjacent tile, in another warp of its tile;
+    a copy in the same row of the next tile (the same thread, later in its
+    range); copies on both sides of each CTA range edge; sentinel rows and
+    a distance-4 tie."""
     rng = np.random.default_rng(seed)
     corpus = rng.integers(0, 2 ** 32, size=(n, 2), dtype=np.uint32)
     q = rng.integers(0, 2 ** 32, size=(m, 2), dtype=np.uint32)
     corpus[-300:] = 0xFFFFFFFF
     q[1] = 0xFFFFFFFF
     plants = {0: [256 * 200 + 3, 256 * 2 + 250], 2: [256 * 40, 256 * 39 + 255],
-              3: [256 * 7 + 130, 256 * 7 + 2], 4: [9000, 4001]}
+              3: [256 * 7 + 130, 256 * 7 + 2], 4: [9000, 4001],
+              5: [256 * 11 + 7, 256 * 10 + 7]}
+    for i, edge in enumerate(_range_edges(dev, n)):
+        plants[6 + i] = [edge, edge - 1]
+    want = {}
     for k, rows in plants.items():
-        if max(rows) < n - 300:                 # a small corpus gets none
+        if k < m and max(rows) < n - 300:       # a small corpus gets fewer
             corpus[rows] = q[k] ^ np.uint32(3 if k == 4 else 0)
+            want[k] = min(rows)
     t = lambda a: torch.from_numpy(a.view(np.int32)).to(dev)  # noqa: E731
-    return t(q), t(corpus)
+    return t(q), t(corpus), want
 
 
-@pytest.mark.parametrize("m,n", [(128, 70_001), (37, 65_536), (16, 1000)])
+@pytest.mark.parametrize("m,n", [(128, 70_001), (37, 65_536), (16, 1000),
+                                 (128, 1), (1024, 70_001), (16384, 4096),
+                                 (128, 3000)])
 @pytest.mark.parametrize("mode", hamming.MODES)
 def test_tensor_core_scan_matches_plain(dev, mode, m, n):
-    """Every K4 mode == the plain XOR scan, first-index ties included, for
-    M not a multiple of 16 and N not a multiple of the tile."""
-    q, corpus = _scan_case(dev, m, n)
+    """Every K4 mode == the plain XOR scan,
+    first-index ties included: M not a multiple of 16 or above one query
+    chunk (128), N not a multiple of the tile, N = 1, N below one CTA's
+    range."""
+    q, corpus, planted = _scan_case(dev, m, n)
     want = hamming.corpus_min_distance_plain(q, corpus)
     before = hamming.K4.launches
     got = hamming.corpus_scan_tc(q, corpus, mode)
@@ -139,14 +196,29 @@ def test_tensor_core_scan_matches_plain(dev, mode, m, n):
         assert (g is None) == (p is None)
         if g is not None:
             assert torch.equal(g, w) and torch.equal(p, w)
-    if got[2] is not None and n > 256 * 200:
-        assert [int(got[2][i]) for i in (0, 2, 3, 4)] == [
-            256 * 2 + 250, 256 * 39 + 255, 256 * 7 + 2, 4001]
-        assert int(got[1][4]) == 4 and int(got[2][1]) == n - 300
+    if got[2] is not None:
+        assert {k: int(got[2][k]) for k in planted} == planted
+        if n > 300:
+            assert int(got[2][1]) == n - 300
+        if 4 in planted:
+            assert int(got[1][4]) == 4
+    # A second call on the same stream finds K4's workspace reset.
+    again = hamming.corpus_scan_tc(q, corpus, mode)
+    assert all(a is None or torch.equal(a, w) for a, w in zip(again, want))
+
+
+def test_tensor_core_scan_all_tied(dev):
+    """One repeated row: every query ties with every row, the argmin is 0."""
+    q, corpus, _ = _scan_case(dev, 128, 70_001)
+    tied = corpus[1000:1001].repeat(1 << 16, 1)
+    for mode in ("full", "twophase", "query_nearest"):
+        _, q_min, q_arg = hamming.corpus_scan_tc(q, tied, mode)
+        assert int(q_arg.max()) == 0
+        assert torch.equal(q_min, hamming.corpus_min_distance_plain(q, tied)[1])
 
 
 def test_k2_frame_min_switch_matches_plain(dev):
-    q, corpus = _scan_case(dev, 128, 70_001)
+    q, corpus, _ = _scan_case(dev, 128, 70_001)
     before = hamming.K2.launches
     got = hamming.corpus_frame_min_xor(q, corpus)
     assert hamming.K2.launches == before + 1

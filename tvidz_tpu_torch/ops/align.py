@@ -15,7 +15,8 @@ argmax, reported as ``d - (Tq_pad - 1)``, so an all-zero row reports
 of its tree, ``align.py:72-85``, is not copied).
 
 ``fragment_search_batch`` / ``fragment_search`` launch kernel K3
-(``csrc/fragment_search.cu``) on CUDA tensors and run the plain versions
+(``csrc/fragment_search.cu``, int8 ±1 products on the tensor cores) on CUDA
+tensors and run the plain versions
 (``fragment_search_batch_plain`` / ``fragment_core``) on CPU tensors; there
 is no fallback between the two. Fingerprints are int32 bit-views of the
 reference's uint32 words.
@@ -154,6 +155,7 @@ def fragment_search_batch_plain(
 
 
 def _fragment_search_cuda(q_fps, q_lens, corpus, lens, thr):
+    """One launch of K3 (after the checks its C entry point relies on)."""
     dev = q_fps.device
     qn, tq_pad, w = q_fps.shape
     v, tc, _ = corpus.shape

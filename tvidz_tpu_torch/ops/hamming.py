@@ -12,7 +12,7 @@ the FIRST row attaining it (q_min, q_arg) — and two hand-written kernels:
   ``_corpus_scan_kernel`` and ``_corpus_scan_kernel_mxu_twophase``.
 - K4 (``csrc/corpus_scan_tc.cu``): the ±1 int8 product on the tensor cores,
   in the five modes of ``MODES`` (``corpus_scan_tc``), one for each MXU
-  variant of the reference.
+  variant of the reference: one persistent launch a call.
 
 On CUDA tensors the wrappers launch their kernel or raise; on CPU tensors
 they run the plain versions (``corpus_min_distance_plain`` for the XOR
@@ -31,7 +31,7 @@ read one 8-byte row per thread instead.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -56,6 +56,7 @@ K4 = backend.register(backend.Kernel(
              "tvidz_tpu/ops/hamming.py:610 (_corpus_query_nearest_kernel_mxu)",
     entry_points={
         "tvz_corpus_scan_tc": [_p, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p],
+        "tvz_corpus_scan_tc_grid": [_i, _i, ctypes.POINTER(ctypes.c_int)],
     },
 ))
 
@@ -70,6 +71,8 @@ _M32 = 0xFFFFFFFF
 # Queries x corpus rows per block of the plain scan (bounds its memory).
 _PLAIN_PAIRS = 1 << 20
 _BIG = 1 << 30
+# The kernels' largest query count.
+_MAX_QUERIES = 16384
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -172,7 +175,7 @@ def _check_kernel_inputs(q, corpus, what):
             f"{q.shape[1]} and {corpus.shape[1]} words")
     backend.require(q, "queries", torch.int32, (m, 2), dev)
     backend.require(corpus, "corpus", torch.int32, (n, 2), dev)
-    if not 1 <= m <= 16384 or not 1 <= n < 2 ** 31:
+    if not 1 <= m <= _MAX_QUERIES or not 1 <= n < 2 ** 31:
         raise ValueError(f"scan shape out of range: M={m}, N={n}")
     return dev, m, n
 
@@ -218,6 +221,21 @@ def corpus_frame_min_xor(q: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     return fmin
 
 
+# Per (device, stream): K4's key workspace (all ones) and its ticket (0).
+# Each launch leaves both as it found them, so a call allocates neither.
+_WORKSPACES: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scan_workspace(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES.setdefault(key, (
+            torch.full((_MAX_QUERIES,), -1, dtype=torch.int64, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev)))
+    return ws
+
+
 def corpus_scan_tc(q: torch.Tensor, corpus: torch.Tensor, mode: str,
                    rows: Optional[torch.Tensor] = None
                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
@@ -226,8 +244,8 @@ def corpus_scan_tc(q: torch.Tensor, corpus: torch.Tensor, mode: str,
     on one device -> (frame_min (N,) or None, q_min (M,) or None, q_arg (M,)
     or None), int32, as ``mode`` produces them. ``full_cols`` reads each
     row's index from ``rows``, an (N,) int32 tensor holding 0..N-1 (built
-    here when None). CUDA tensors launch K4, CPU tensors run
-    ``corpus_scan_pm1_plain``."""
+    here when None). CUDA tensors launch K4 (one persistent launch), CPU
+    tensors run ``corpus_scan_pm1_plain``."""
     if mode not in _MODE_OUTPUTS:
         raise ValueError(f"unknown scan mode {mode!r}; one of {MODES}")
     _check_scan_inputs(q, corpus)
@@ -241,18 +259,31 @@ def corpus_scan_tc(q: torch.Tensor, corpus: torch.Tensor, mode: str,
         backend.require(rows, "rows", torch.int32, (n,), dev)
     else:
         rows = None
-    empty = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
-    q_pm1 = empty((-(-m // 16) * 16, 64), torch.int8)
-    fmin = empty((n,), torch.int32) if want_fmin else None
-    keys = empty((m,), torch.int64) if want_query else None
-    q_min = empty((m,), torch.int32) if want_query else None
-    q_arg = empty((m,), torch.int32) if want_query else None
+    empty = lambda shape: torch.empty(shape, dtype=torch.int32, device=dev)  # noqa: E731
+    fmin = empty((n,)) if want_fmin else None
+    q_min = empty((m,)) if want_query else None
+    q_arg = empty((m,)) if want_query else None
+    keys, ticket = _scan_workspace(dev) if want_query else (None, None)
     p = lambda t: None if t is None else backend.ptr(t)  # noqa: E731
     K4.call("tvz_corpus_scan_tc", p(q), m, p(corpus), n, p(rows),
-            MODES.index(mode), p(q_pm1), p(fmin), p(keys), p(q_min), p(q_arg),
+            MODES.index(mode), p(fmin), p(keys), p(ticket), p(q_min), p(q_arg),
             backend.stream_ptr(dev))
     K4.launches += 1
     return fmin, q_min, q_arg
+
+
+def corpus_scan_tc_grid(mode: str, n: int, device: torch.device) -> int:
+    """The number of CTAs K4's ``mode`` launches on ``device`` for an
+    ``n``-row corpus. CTA c walks the tiles ``[tiles c / grid, tiles (c+1) /
+    grid)`` of 256 rows in ascending order, so tests can plant ties at the
+    edges of the ranges the card really uses. Launches nothing."""
+    if mode not in _MODE_OUTPUTS:
+        raise ValueError(f"unknown scan mode {mode!r}; one of {MODES}")
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        K4.call("tvz_corpus_scan_tc_grid", MODES.index(mode), int(n),
+                ctypes.byref(grid))
+    return grid.value
 
 
 def corpus_query_nearest(q: torch.Tensor, corpus: torch.Tensor
