@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that tvidz_tpu_torch runs on the GPU: build its kernels,
-check each against its plain PyTorch version (K3, K4's five modes and K2's
-frame_min-only switch exactly, ties across K4's CTA ranges included), drive
+check each against its plain PyTorch version (K1 on chained blocks, on the
+dispatcher's batch of streams and on a whole stream, each one launch; K3,
+K4's five modes and K2's frame_min-only switch exactly, ties across K4's
+CTA ranges included), drive
 ``ingest`` / ``analyze`` / ``search`` through the port's CLI, the two
 corpus scans (``search_fingerprints``, ``nearest_video_counts``), the
 inspector service (uploads over the fake S3 -> SQS path, SSE, fragment and
@@ -14,9 +16,9 @@ time it. Launch counts are zeroed before and read after each of those paths.
 ``--against`` runs only the race of this tree against another checkout of
 the repo (``git archive <commit> | tar -x -C OLD_ROOT``; in a directory
 ``.gitignore`` lists): four fresh processes, old, new, new, old, each
-timing K3 and K4 at the race shapes (torch.profiler device time and CUDA
-events) and one analyze of a 1024-frame upload, their outputs held equal
-across the trees.
+timing K1, K3 and K4 at the race shapes (torch.profiler device time and
+CUDA events) and one analyze of a 1024-frame upload; K3's and K4's outputs
+held equal across the trees, K1's within its tolerances.
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and on any
 failed phase. Each phase prints one line; the line before the last is
@@ -47,8 +49,15 @@ SCAN_M, SCAN_N = 128, 1 << 20               # queries x corpus rows
 FRAG_A, FRAG_B, FRAG_C = (1, 768, 1024, 1024), (1, 768, 256, 4096), (8, 768, 256, 4096)
 FRAG_THR = 10           # the service's hamming threshold (config.match)
 FILLER_VIDEOS, FILLER_FP_VIDEOS, FILLER_FP_FRAMES = 8192, 256, 4096
+K1_STREAMS = 4          # the dispatcher's pass in k1_vs_plain
+K1_STREAM_FRAMES = 4096 + 77                # a ragged whole stream
+K1_VALUE_FRAMES = 512 * 256                 # the bench's single-dispatch pass
 SCORE_TOL = 1e-6        # mafd sums are integer-exact: bit-equal expected
 HASH_BITS_TOL = 2       # f32 sums in another order (tests/test_ops_phash.py)
+# The carried mafd is unscaled (up to 255). K1 divides the exact sum by
+# H*W; the plain version's torch.mean multiplies it by a rounded 1/(H*W)
+# on CUDA, which may land one float32 ulp away.
+MAFD_ULPS_TOL = 1
 
 
 class SmokeFailure(RuntimeError):
@@ -192,6 +201,14 @@ def popcount_rows(x):
     return np.unpackbits(np.ascontiguousarray(x).view(np.uint8), axis=-1).sum(-1)
 
 
+def mafd_ulps(got, want) -> float:
+    """|got - want| in float32 ulps of ``want`` (two carried mafd tensors)."""
+    import numpy as np
+
+    a, b = np.float32(got.item()), np.float32(want.item())
+    return float(abs(a - b) / np.spacing(abs(b)))
+
+
 def read_launches(expected, what: str) -> dict:
     """Every kernel's launch count since the last reset; fails if a kernel
     the path should run never launched."""
@@ -219,6 +236,16 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def k1_bound(frames: int):
+    """K1 over ``frames`` frames: the frames, the carry frame in and out,
+    scores and hashes; per frame the factored DCT (2*8*H*W + 2*8*8*H) and
+    mafd (3*H*W) in fp32."""
+    return bound(
+        frames * HEIGHT * WIDTH + 2 * 4 * HEIGHT * WIDTH + frames * 12,
+        frames * (2 * 8 * HEIGHT * WIDTH + 2 * 64 * HEIGHT + 3 * HEIGHT * WIDTH),
+        FP32_OPS_PER_S)
+
+
 # -- phase 3: K1 -----------------------------------------------------------------
 
 
@@ -235,7 +262,7 @@ def check_fingerprint_block(dev):
                                dtype=np.uint8)
     synth_luma, _ = synthetic.synthetic_video(
         3 * FRAMES + 50, HEIGHT, WIDTH, cut_frames=(40, 200, 300), seed=SEED)
-    max_err, max_bits, differing, frames = 0.0, 0, 0, 0
+    max_err, max_bits, differing, frames, ulps = 0.0, 0, 0, 0, 0.0
     for luma in (random_luma, synth_luma):
         ck = fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev)
         cp = fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev)
@@ -259,11 +286,17 @@ def check_fingerprint_block(dev):
             check(torch.equal(ck.scene.prev_frame, cp.scene.prev_frame)
                   and bool(ck.scene.has_prev) and bool(cp.scene.has_prev),
                   "K1 carry frame differs from the plain version")
-            max_err = max(max_err, abs(ck.scene.prev_mafd.item()
-                                       - cp.scene.prev_mafd.item()))
+            ulps = max(ulps, mafd_ulps(ck.scene.prev_mafd, cp.scene.prev_mafd))
     check(max_err <= SCORE_TOL, f"K1 scores differ by {max_err} > {SCORE_TOL}")
     check(max_bits <= HASH_BITS_TOL,
           f"K1 hashes differ by {max_bits} bits > {HASH_BITS_TOL}")
+    check(ulps <= MAFD_ULPS_TOL,
+          f"K1 carried mafd {ulps} ulps from the plain version's")
+
+    batch = check_k1_batch(dev, rng, left, right)
+    stream = check_k1_stream(dev, rng)
+    max_err = max(max_err, batch["score_max_abs_err"], stream["score_max_abs_err"])
+    ulps = max(ulps, batch["carry_mafd_max_ulps"])
 
     # Median + pack from identical coefficients must be bit-exact, ties
     # included: coarse quantization plants many equal values per row.
@@ -277,8 +310,112 @@ def check_fingerprint_block(dev):
     phase("k1_vs_plain", shape=[FRAMES, HEIGHT, WIDTH], frames=frames,
           score_max_abs_err=max_err, score_tol=SCORE_TOL,
           hash_max_bit_diff=max_bits, hash_bits_tol=HASH_BITS_TOL,
-          frames_not_bit_identical=differing, median_pack_rows_exact=low.shape[0])
+          carry_mafd_max_ulps=ulps, carry_mafd_ulps_tol=MAFD_ULPS_TOL,
+          frames_not_bit_identical=differing, median_pack_rows_exact=low.shape[0],
+          batch=batch, stream=stream)
     return max_err
+
+
+def hash_bits(a, b):
+    """Differing bits per frame between two (N, 2) int32 hash tensors."""
+    from tvidz_tpu_torch.ops import phash
+
+    return popcount_rows(phash.words_to_numpy(a) ^ phash.words_to_numpy(b))
+
+
+def one_launch(fn, what: str):
+    """``fn()``'s result; fails unless it launched K1 exactly once."""
+    from tvidz_tpu_torch.ops import fused
+
+    before = fused.K1.launches
+    out = fn()
+    check(fused.K1.launches == before + 1,
+          f"{what}: {fused.K1.launches - before} K1 launches, not 1")
+    return out
+
+
+def check_k1_batch(dev, rng, left, right) -> dict:
+    """K1 over the dispatcher's pass: K1_STREAMS blocks, each with its own
+    carry (fresh, mid-stream, from a random frame) and valid_t, in one
+    launch; each stream within the tolerances of the plain version and bit
+    for bit a lone launch of it."""
+    import numpy as np
+    import torch
+
+    from tvidz_tpu_torch.ops import fused
+
+    k = K1_STREAMS
+    x = torch.from_numpy(rng.integers(0, 256, size=(2, k, FRAMES, HEIGHT, WIDTH),
+                                      dtype=np.uint8)).to(dev)
+    carries = [fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev) for _ in range(k)]
+    # Round 0 puts every stream mid-stream except the first, which stays
+    # fresh for round 1.
+    _, _, warm = fused.fingerprint_blocks_batched_plain(
+        list(x[0]), carries, [FRAMES] * k, left, right)
+    carries = [carries[0], *warm[1:]]
+    valid = [FRAMES, 1, 77, FRAMES][:k]
+    sb, fb, cb = one_launch(lambda: fused.fingerprint_blocks_batched(
+        list(x[1]), carries, valid, left, right), "K1 batch")
+    sp, fp, cp = fused.fingerprint_blocks_batched_plain(
+        list(x[1]), carries, valid, left, right)
+    err, bits, ulps = 0.0, 0, 0.0
+    for j in range(k):
+        s1, f1, c1 = fused.fingerprint_block(x[1, j], carries[j], left, right,
+                                             valid_t=valid[j])
+        torch.cuda.synchronize()
+        check(torch.equal(sb[j], s1) and torch.equal(fb[j], f1)
+              and all(torch.equal(a, b) for a, b in zip(cb[j].scene, c1.scene)),
+              f"K1 batch stream {j} differs from a lone launch of it")
+        check(torch.equal(cb[j].scene.prev_frame, cp[j].scene.prev_frame)
+              and bool(cb[j].scene.has_prev),
+              f"K1 batch stream {j}: carry frame differs from the plain version")
+        err = max(err, (sb[j] - sp[j]).abs().max().item())
+        ulps = max(ulps, mafd_ulps(cb[j].scene.prev_mafd, cp[j].scene.prev_mafd))
+        bits = max(bits, int(hash_bits(fb[j], fp[j]).max()))
+    check(err <= SCORE_TOL and bits <= HASH_BITS_TOL and ulps <= MAFD_ULPS_TOL,
+          f"K1 batch: scores {err}, hash bits {bits}, carried mafd {ulps} ulps")
+    return {"streams": k, "valid_t": valid, "score_max_abs_err": err,
+            "hash_max_bit_diff": bits, "carry_mafd_max_ulps": ulps,
+            "bit_equal_to_lone_launches": True}
+
+
+def check_k1_stream(dev, rng) -> dict:
+    """K1 over a whole ragged stream of K1_STREAM_FRAMES frames in one launch
+    (``fingerprint_stream``): within the tolerances of the plain version,
+    and bit for bit the chained launches of its FRAMES-frame blocks."""
+    import numpy as np
+    import torch
+
+    from tvidz_tpu_torch.decode import synthetic
+    from tvidz_tpu_torch.ops import fused, phash
+
+    n = K1_STREAM_FRAMES
+    luma, _ = synthetic.synthetic_video(n, HEIGHT, WIDTH,
+                                        cut_frames=(100, 1500, 4000), seed=SEED)
+    luma[::3] = rng.integers(0, 256, size=luma[::3].shape, dtype=np.uint8)
+    x = torch.from_numpy(luma).to(dev)
+    ss, fs = one_launch(lambda: fused.fingerprint_stream(x), "K1 stream")
+    sp, fp = fused.fingerprint_stream_plain(x)
+    left, right = phash.hash_operators(HEIGHT, WIDTH, dev)
+    carry = fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev)
+    chained = []
+    for s in range(0, n, FRAMES):
+        sc, fpk, carry = fused.fingerprint_block(x[s:s + FRAMES], carry, left, right)
+        chained.append((sc, fpk))
+    torch.cuda.synchronize()
+    check(torch.isfinite(ss).all().item() and ss.shape == (n,) and fs.shape == (n, 2),
+          f"K1 stream: shapes {tuple(ss.shape)}, {tuple(fs.shape)}")
+    check(torch.equal(ss, torch.cat([c[0] for c in chained]))
+          and torch.equal(fs, torch.cat([c[1] for c in chained])),
+          "K1 stream differs from its chained block launches")
+    err = (ss - sp).abs().max().item()
+    bits = hash_bits(fs, fp)
+    check(err <= SCORE_TOL and int(bits.max()) <= HASH_BITS_TOL,
+          f"K1 stream: scores {err}, hash bits {int(bits.max())}")
+    return {"frames": n, "score_max_abs_err": err,
+            "hash_max_bit_diff": int(bits.max()),
+            "frames_not_bit_identical": int((bits > 0).sum()),
+            "bit_equal_to_chained_launches": True}
 
 
 # -- phase 4: K2 -----------------------------------------------------------------
@@ -566,6 +703,10 @@ def still_runs(corpus, qs):
 # random rows, and at M=1024 (a whole video, ``search_fingerprints``).
 RACE_K4 = (("m128_2^20", 128, SCAN_N), ("m128_2^24", 128, 1 << 24),
            ("m1024_2^20", 1024, SCAN_N))
+# K1 at the main path's block and at the bench's single-dispatch pass,
+# through ``fused.fingerprint_block`` (which both trees have; each takes any
+# T), from a mid-stream carry.
+RACE_K1 = (("t128", FRAMES), ("t2^17", K1_VALUE_FRAMES))
 # K3 at the three parity shapes and on the bucket of identical rows.
 RACE_K3 = (("a", FRAG_A), ("b", FRAG_B), ("c", FRAG_C), ("a_dense", FRAG_A))
 
@@ -579,19 +720,20 @@ def digest(outs) -> str:
     return h.hexdigest()[:16]
 
 
-def measure_arm(root: str) -> dict:
+def measure_arm(root: str, dump: str) -> dict:
     """One arm of the race, in a fresh process: the port found at ``root``
     builds its kernels, analyzes a short upload and then a 1024-frame one
     against a prefilled 2^20-fingerprint store (``time_analyze``), then
-    times K4 (every mode, ``RACE_K4``) and K3 (``RACE_K3``):
-    device ms from torch.profiler and per-call ms from CUDA events, with a
-    digest of each output."""
+    times K1 (``RACE_K1``), K4 (every mode, ``RACE_K4``) and K3
+    (``RACE_K3``): device ms from torch.profiler and per-call ms from CUDA
+    events, with a digest of each output. K1's outputs are also saved to
+    ``dump`` (an .npz), to be held across trees by its tolerances."""
     import torch
 
     import tvidz_tpu_torch
     from tvidz_tpu_torch import backend, cli
     from tvidz_tpu_torch.decode import write_synthetic_y4m
-    from tvidz_tpu_torch.ops import align, hamming
+    from tvidz_tpu_torch.ops import align, fused, hamming, phash
 
     pkg = os.path.dirname(os.path.realpath(tvidz_tpu_torch.__file__))
     check(pkg == os.path.join(os.path.realpath(root), "tvidz_tpu_torch"),
@@ -624,12 +766,30 @@ def measure_arm(root: str) -> dict:
         return {"device_ms": device_ms(fn, reps), "ms": cuda_ms(fn, reps),
                 "digest": digest(outs)}
 
-    q, corpus = scan_inputs(dev, {**TILE_TIES, **THREAD_TIE})
+    rows, k1_out = {}, {}
+    left, right = phash.hash_operators(HEIGHT, WIDTH, dev)
     gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    for label, frames in RACE_K1:
+        x = torch.randint(0, 256, (frames, HEIGHT, WIDTH), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        # A carry from the block before: the call continues a stream.
+        _, _, carry = fused.fingerprint_block(x[:FRAMES], fused.initial_fingerprint_carry(
+            HEIGHT, WIDTH, dev), left, right)
+        sc, fp, c = fused.fingerprint_block(x, carry, left, right)
+        fn = lambda: fused.fingerprint_block(x, carry, left, right)[:2]  # noqa: E731
+        k1_out.update({f"{label}_scores": sc, f"{label}_fps": fp,
+                       f"{label}_frame": c.scene.prev_frame,
+                       f"{label}_mafd": c.scene.prev_mafd})
+        rows[f"K1 {label}"] = timed(fn, 20 if frames == FRAMES else 5)
+        del x
+    import numpy as np
+
+    np.savez(dump, **{k: v.cpu().numpy() for k, v in k1_out.items()})
+    q, corpus = scan_inputs(dev, {**TILE_TIES, **THREAD_TIE})
     gen.manual_seed(SEED + 6)
     big = torch.randint(-2 ** 31, 2 ** 31, (1 << 24, 2), dtype=torch.int32,
                         device=dev, generator=gen)
-    rows = {}
     for label, m, n in RACE_K4:
         cc = corpus if n == SCAN_N else big
         qq = more_queries(q, m) if m > q.shape[0] else q
@@ -648,25 +808,60 @@ def measure_arm(root: str) -> dict:
     return arm
 
 
+def k1_across(old: dict, new: dict) -> dict:
+    """K1's outputs of an old and a new arm held by K1's tolerances (the
+    reduction order differs between the trees, so not by digest)."""
+    import numpy as np
+
+    out = {}
+    for label, _ in RACE_K1:
+        err = float(np.abs(old[f"{label}_scores"] - new[f"{label}_scores"]).max())
+        bits = popcount_rows(old[f"{label}_fps"].view(np.uint32)
+                             ^ new[f"{label}_fps"].view(np.uint32))
+        check(err <= SCORE_TOL and int(bits.max()) <= HASH_BITS_TOL
+              and np.array_equal(old[f"{label}_frame"], new[f"{label}_frame"])
+              and abs(float(old[f"{label}_mafd"]) - float(new[f"{label}_mafd"]))
+              <= SCORE_TOL,
+              f"race: K1 {label} differs between the trees beyond its "
+              f"tolerances (scores {err}, bits {int(bits.max())})")
+        out[label] = {"score_max_abs_err": err, "hash_max_bit_diff": int(bits.max()),
+                      "frames_not_bit_identical": int((bits > 0).sum()),
+                      "carry_frame_equal": True}
+    return out
+
+
 def race_against(old_root: str, smi: str) -> None:
     """This tree against the one at ``old_root``: four fresh processes in
-    turns (old, new, new, old), each ``measure_arm``; every output equal
-    across all four; old and new each the mean of their two arms."""
+    turns (old, new, new, old), each ``measure_arm``; K3 and K4 outputs
+    equal across all four, K1's equal within each tree and within K1's
+    tolerances across them; old and new each the mean of their two arms."""
+    import numpy as np
+
     new_root = os.path.dirname(os.path.abspath(__file__))
-    arms = []
-    for root in (old_root, new_root, new_root, old_root):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--measure", root],
-            capture_output=True, text=True, timeout=900)
-        check(proc.returncode == 0, f"race arm {root} failed (exit "
-                                    f"{proc.returncode}): {proc.stderr[-3000:]}")
-        arms.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    arms, dumps = [], []
+    work = tempfile.mkdtemp(prefix="tvidz_chip_race_k1_")
+    try:
+        for i, root in enumerate((old_root, new_root, new_root, old_root)):
+            dump = os.path.join(work, f"arm{i}.npz")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--measure", root,
+                 "--dump", dump], capture_output=True, text=True, timeout=900)
+            check(proc.returncode == 0, f"race arm {root} failed (exit "
+                                        f"{proc.returncode}): {proc.stderr[-3000:]}")
+            arms.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            with np.load(dump) as z:
+                dumps.append({k: z[k] for k in z.files})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     mean = lambda a, b: (a + b) / 2  # noqa: E731
     rows = []
     for key in arms[0]["rows"]:
         got = [arm["rows"][key] for arm in arms]
-        check(len({g["digest"] for g in got}) == 1,
-              f"race: {key} differs between the trees")
+        # K1: each tree repeats itself; across trees, k1_across below.
+        same = ((got[0], got[3]), (got[1], got[2])) if key.startswith("K1 ") \
+            else ((got[0], got[1], got[2], got[3]),)
+        check(all(len({g["digest"] for g in grp}) == 1 for grp in same),
+              f"race: {key} differs between runs that should agree")
         old_dev = mean(got[0]["device_ms"], got[3]["device_ms"])
         new_dev = mean(got[1]["device_ms"], got[2]["device_ms"])
         rows.append({"case": key, "old_device_ms": old_dev,
@@ -674,6 +869,7 @@ def race_against(old_root: str, smi: str) -> None:
                      "old_ms": mean(got[0]["ms"], got[3]["ms"]),
                      "new_ms": mean(got[1]["ms"], got[2]["ms"]),
                      "device_ms_by_arm": [g["device_ms"] for g in got]})
+    k1 = k1_across(dumps[0], dumps[1])
     analyze = [{"tree": "old" if i in (0, 3) else "new",
                 "frames_per_s": a["analyze"]["analyze_frames_per_s"],
                 "stages": a["analyze"]["analyze_stages"],
@@ -681,7 +877,8 @@ def race_against(old_root: str, smi: str) -> None:
                 "traced_idle_share": a["analyze"]["device_idle_share"]}
                for i, a in enumerate(arms)]
     phase("race", card=smi, old=old_root, new=new_root,
-          order=["old", "new", "new", "old"], rows=rows, analyze=analyze,
+          order=["old", "new", "new", "old"], rows=rows, k1_old_vs_new=k1,
+          analyze=analyze,
           kernels={"old": arms[0]["kernels"], "new": arms[1]["kernels"]})
 
 
@@ -924,6 +1121,12 @@ def drive_service(work: str, url: str, smi: str) -> dict:
         check(not sse.is_alive() and frames and frames[-1]["status"] == "done"
               and frames[-1]["duplicates"] == ["omega.y4m"],
               f"service: SSE stream did not end on done: {frames[-1:]}")
+        # Every upload block went through the dispatcher: one K1 launch a
+        # pass. The passes here hold about one block each, so this does not
+        # tell a launch a pass from one a block; k1_vs_plain's batch does.
+        upload_k1, passes = fused.K1.launches, app.block_dispatcher.passes
+        check(upload_k1 == passes > 0,
+              f"service: {upload_k1} K1 launches in {passes} dispatcher passes")
 
         span = {"filename": "omega-copy.y4m", "start_frame": 50, "num_frames": 300}
         t0 = time.perf_counter()
@@ -967,6 +1170,7 @@ def drive_service(work: str, url: str, smi: str) -> dict:
         fragment_top=top, video_top=best, boot_s=boot_s,
         upload_to_verdict_s=walls, copy_upload_traced=traced,
         search_fragment_s=fragment_s,
+        upload_k1_launches=upload_k1, dispatcher_passes=passes,
         search_video_s=video_s, dispatcher=disp,
         stage_timings=metrics["stage_timings"],
         sync_bytes=metrics["corpus_footprint"]["sync_bytes"])
@@ -997,7 +1201,8 @@ def drive_bench(smi: str) -> dict:
           f"bench: a key was not measured: {rec}")
     check(all(r["agree"] for r in rec["race"]), "bench: a race variant disagreed")
     phase("bench", card=card, launches=launches,
-          **{k: rec[k] for k in keys + ("timestamp_match_p50_ms",)},
+          **{k: rec[k] for k in keys + ("timestamp_match_p50_ms",
+                                       "fingerprint_per_block_frames_per_sec")},
           race=[[r["variant"], r["n"], r["device_ms"], r["wall_p50_ms"]]
                 for r in rec["race"]])
     return launches
@@ -1044,7 +1249,8 @@ def time_analyze(work: str, url: str) -> dict:
 
 
 def time_kernels(dev) -> dict:
-    """K1-K4 at the main path's shapes: per call by CUDA events, interleaved
+    """K1-K4 at the main path's shapes (K1 also at the bench's 2^17-frame
+    single-dispatch shape): per call by CUDA events, interleaved
     with the plain version where one is timed, and the kernels on the
     device from torch.profiler. The plain versions' device time is not
     taken: with thousands of small launches a call, their windows lose
@@ -1061,6 +1267,20 @@ def time_kernels(dev) -> dict:
     k1_plain = lambda: fused.fingerprint_block_plain(  # noqa: E731
         x, carry, left, right)
     k1_ms, k1_plain_ms = interleaved_ms(k1, k1_plain, 20)
+    # The bench's single-dispatch shape: one launch over 512 x 256 frames.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    xs = torch.randint(0, 256, (K1_VALUE_FRAMES, HEIGHT, WIDTH),
+                       dtype=torch.uint8, device=dev, generator=gen)
+    k1s = lambda: fused.fingerprint_block(xs, carry, left, right)  # noqa: E731
+    k1s_plain = lambda: fused.fingerprint_block_plain(  # noqa: E731
+        xs, carry, left, right)
+    k1s_ms, k1s_plain_ms = interleaved_ms(k1s, k1s_plain, 3)
+    k1_stream = {"frames": K1_VALUE_FRAMES, "ms": k1s_ms,
+                 "plain_ms": k1s_plain_ms, "device_ms": device_ms(k1s, 5),
+                 "frames_per_s": K1_VALUE_FRAMES / k1s_ms * 1e3,
+                 "grid": fused.fingerprint_grid(K1_VALUE_FRAMES, HEIGHT, WIDTH)}
+    del xs
     q, corpus = scan_inputs(dev, planted(dev)[0])
     k2 = lambda: hamming.corpus_min_distance(q, corpus, frame_min=False)  # noqa: E731
     k2_plain = lambda: hamming.corpus_min_distance_plain(  # noqa: E731
@@ -1101,8 +1321,13 @@ def time_kernels(dev) -> dict:
             dc, dq = dense_inputs(c, qs)
             k3_times["a_dense"] = {"device_ms": device_ms(
                 lambda: align.fragment_search_batch(dq, ql, dc, ln, FRAG_THR), 10)}
+    k1_items = device_ms_by_kernel(k1, 20)
+    check(len(k1_items) == 1, f"K1: device items per call {sorted(k1_items)}, not one")
     return {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
-            "k1_device_ms": device_ms(k1, 20),
+            "k1_device_ms": sum(k1_items.values()),
+            "k1_device_items": sorted(k1_items),
+            "k1_grid": fused.fingerprint_grid(FRAMES, HEIGHT, WIDTH),
+            "k1_stream": k1_stream,
             "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
             "k2_device_ms": device_ms(k2, 10),
             "k2_frame_min_device_ms": device_ms(k2_fmin, 20),
@@ -1120,6 +1345,7 @@ def main(argv=None) -> int:
     ap.add_argument("--against", metavar="OLD_ROOT",
                     help="race this tree against the checkout at OLD_ROOT")
     ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--dump", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1129,7 +1355,7 @@ def main(argv=None) -> int:
     # The analyzer's per-step log lines would bury the phase lines.
     os.environ.setdefault("TVIDZ_LOG_LEVEL", "WARNING")
     if args.measure:                     # one arm of ``race_against``
-        print(json.dumps(measure_arm(args.measure)))
+        print(json.dumps(measure_arm(args.measure, args.dump)))
         return 0
     smi = nvidia_smi()
     if args.against:
@@ -1173,6 +1399,10 @@ def main(argv=None) -> int:
         path_launches["service"] = drive_service(work, url, smi)
         path_launches["bench"] = drive_bench(smi)
 
+        stream_bound = k1_bound(K1_VALUE_FRAMES)
+        times["k1_stream"].update(
+            bound_ms=stream_bound[0], bound_by=stream_bound[1],
+            bound_frames_per_s=K1_VALUE_FRAMES / stream_bound[0] * 1e3)
         phase("timings", card=smi, **times, **time_analyze(work, url),
               profiler_set_aside=sorted(SET_ASIDE))
     finally:
@@ -1189,12 +1419,7 @@ def main(argv=None) -> int:
     phase("path_launches", **path_launches)
     m, n = SCAN_M, SCAN_N
     bounds = {
-        # K1: the block, the carry frame in and out, scores, mafd and hashes;
-        # per frame the factored DCT (2*8*H*W + 2*8*8*H) and mafd (3*H*W).
-        fused.K1.name: bound(
-            FRAMES * HEIGHT * WIDTH + 2 * 4 * HEIGHT * WIDTH + FRAMES * 16,
-            FRAMES * (2 * 8 * HEIGHT * WIDTH + 2 * 64 * HEIGHT + 3 * HEIGHT * WIDTH),
-            FP32_OPS_PER_S),
+        fused.K1.name: k1_bound(FRAMES),
         # K2 and K4 time the same function (query-nearest): corpus and
         # queries in, q_min and q_arg out; 64 int8 multiply-adds per pair.
         hamming.K2.name: bound(8 * n + 16 * m, 2 * 64 * m * n, INT8_TC_OPS_PER_S),

@@ -1,0 +1,46 @@
+"""Build the native decoder libraries before the tests are collected.
+
+The reference's decoder suites (``tests/test_decode_fast.py``,
+``tests/test_decode_dcskim.py``, ``tests/test_scene_native.py`` and the
+``natives`` cases of ``tests/test_torch_host_copies.py``) skip when
+``tvidz_tpu/decode/_native/libtvidz_decode.so`` does not exist at
+collection, and both libraries are build outputs that git ignores. So the
+controlling pytest process builds them here, once, before any xdist worker
+collects: ``make -C tvidz_tpu/decode/_native`` for the reference's and
+``tvidz_tpu_torch.decode.native.build()`` for the port's (into
+``build/tvidz_tpu_torch/``). Both are no-ops when the library is current,
+nothing is built when ``pkg-config`` does not find libav, and a lock file
+under ``build/`` keeps concurrent runs from building at once.
+"""
+
+import fcntl
+import os
+import subprocess
+
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+_LIBAV = ("libavformat", "libavcodec", "libavutil", "libswscale")
+
+
+def _libav_present() -> bool:
+    try:
+        return subprocess.run(["pkg-config", "--exists", *_LIBAV]).returncode == 0
+    except OSError:
+        return False
+
+
+def pytest_configure(config):
+    if hasattr(config, "workerinput") or not _libav_present():
+        return
+    lock_dir = os.path.join(_ROOT, "build")
+    os.makedirs(lock_dir, exist_ok=True)
+    with open(os.path.join(lock_dir, ".native-decoders.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        subprocess.run(["make", "-s", "-C",
+                        os.path.join(_ROOT, "tvidz_tpu", "decode", "_native")],
+                       check=False)
+        from tvidz_tpu_torch.decode import native
+
+        try:
+            native.build()
+        except native.DecodeError as e:
+            print(f"conftest: the port's native decoder did not build: {e}")

@@ -55,6 +55,118 @@ def test_median_pack_kernel_is_exact_with_ties(dev):
                        phash.pack_bits_i32(phash.median_threshold_bits(low, 8)))
 
 
+def _bits(a, b):
+    x = phash.words_to_numpy(a) ^ phash.words_to_numpy(b)
+    return np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
+
+
+def test_batched_streams_are_one_launch_bit_equal_to_lone_launches(dev):
+    """The dispatcher's pass: four streams (fresh, mid-stream, one real
+    frame, a short block) in one K1 launch; each equals a lone launch of
+    it bit for bit and the plain version within the tolerances."""
+    rng = np.random.default_rng(8)
+    left, right = phash.hash_operators(90, 160, dev)
+    x = torch.from_numpy(rng.integers(0, 256, size=(2, 4, 128, 90, 160),
+                                      dtype=np.uint8)).to(dev)
+    fresh = [fused.initial_fingerprint_carry(90, 160, dev) for _ in range(4)]
+    _, _, warm = fused.fingerprint_blocks_batched(list(x[0]), fresh, [128] * 4,
+                                                  left, right)
+    carries, valid = [fresh[0], *warm[1:]], [128, 1, 60, 128]
+    before = fused.K1.launches
+    sb, fb, cb = fused.fingerprint_blocks_batched(list(x[1]), carries, valid,
+                                                  left, right)
+    assert fused.K1.launches == before + 1
+    sp, fp, cp = fused.fingerprint_blocks_batched_plain(list(x[1]), carries,
+                                                        valid, left, right)
+    for j in range(4):
+        s1, f1, c1 = fused.fingerprint_block(x[1, j], carries[j], left, right,
+                                             valid_t=valid[j])
+        torch.cuda.synchronize()
+        assert torch.equal(sb[j], s1) and torch.equal(fb[j], f1)
+        assert all(torch.equal(a, b) for a, b in zip(cb[j].scene, c1.scene))
+        assert (sb[j] - sp[j]).abs().max().item() <= 1e-6
+        assert _bits(fb[j], fp[j]).max() <= 2
+        assert torch.equal(cb[j].scene.prev_frame, cp[j].scene.prev_frame)
+
+
+def test_forward_streams_is_one_launch_per_pass(dev):
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+
+    model = FingerprintModel(device=dev)
+    lumas = [model.example_payload() for _ in range(3)]
+    before = fused.K1.launches
+    model.forward_streams(lumas, [model.init_carry() for _ in range(3)],
+                          [128, 128, 7])
+    assert fused.K1.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [1000 + 33, 128])
+def test_whole_stream_is_one_launch_bit_equal_to_chained_launches(dev, n):
+    luma, _ = synthetic.synthetic_video(n, 90, 160, cut_frames=(10, n // 2),
+                                        seed=5)
+    x = torch.from_numpy(luma).to(dev)
+    before = fused.K1.launches
+    ss, fs = fused.fingerprint_stream(x)
+    assert fused.K1.launches == before + 1
+    left, right = phash.hash_operators(90, 160, dev)
+    carry = fused.initial_fingerprint_carry(90, 160, dev)
+    parts = []
+    for s in range(0, n, 128):
+        sc, fp, carry = fused.fingerprint_block(x[s:s + 128], carry, left, right)
+        parts.append((sc, fp))
+    torch.cuda.synchronize()
+    assert torch.equal(ss, torch.cat([p[0] for p in parts]))
+    assert torch.equal(fs, torch.cat([p[1] for p in parts]))
+    sp, fp = fused.fingerprint_stream_plain(x)
+    assert (ss - sp).abs().max().item() <= 1e-6 and _bits(fs, fp).max() <= 2
+
+
+@pytest.mark.parametrize("h,w,t", [(36, 64, 16), (72, 136, 1), (8, 160, 3)])
+def test_kernel_other_geometries_match_plain(dev, h, w, t):
+    """Widths below 160 (whole words only, and a partial byte column) and
+    one-frame and three-frame blocks: three streams of two blocks each,
+    batched, against the plain version."""
+    rng = np.random.default_rng(9)
+    left, right = phash.hash_operators(h, w, dev)
+    x = torch.from_numpy(rng.integers(0, 256, size=(2, 3, t, h, w),
+                                      dtype=np.uint8)).to(dev)
+    ck = [fused.initial_fingerprint_carry(h, w, dev) for _ in range(3)]
+    cp = list(ck)
+    for r in range(2):
+        valid = [t, max(1, t - 1), t]
+        sk, fk, ck = fused.fingerprint_blocks_batched(list(x[r]), ck, valid, left, right)
+        sp, fp, cp = fused.fingerprint_blocks_batched_plain(list(x[r]), cp, valid,
+                                                            left, right)
+        torch.cuda.synchronize()
+        assert (sk - sp).abs().max().item() <= 1e-6
+        assert _bits(fk.reshape(-1, 2), fp.reshape(-1, 2)).max() <= 2
+        for a, b in zip(ck, cp):
+            assert torch.equal(a.scene.prev_frame, b.scene.prev_frame)
+            # The carried mafd is unscaled: K1 divides the exact sum, the
+            # plain torch.mean multiplies it by a rounded reciprocal on
+            # CUDA; one float32 ulp, 2^-23 relative.
+            np.testing.assert_allclose(a.scene.prev_mafd.cpu().numpy(),
+                                       b.scene.prev_mafd.cpu().numpy(),
+                                       rtol=2 ** -23, atol=0)
+
+
+def test_kernel_refuses_what_it_cannot_take(dev):
+    """A CUDA tensor the kernel cannot take raises; nothing falls back to
+    the plain version."""
+    left, right = phash.hash_operators(90, 150, dev)
+    carry = fused.initial_fingerprint_carry(90, 150, dev)
+    x = torch.zeros((8, 90, 150), dtype=torch.uint8, device=dev)
+    before = fused.K1.launches
+    with pytest.raises(ValueError, match="W <= 160"):
+        fused.fingerprint_block(x, carry, left, right)
+    left, right = phash.hash_operators(90, 160, dev)
+    carry = fused.initial_fingerprint_carry(90, 160, dev)
+    x = torch.zeros((8 * 14400 + 1,), dtype=torch.uint8, device=dev)[1:].view(8, 90, 160)
+    with pytest.raises(ValueError, match="aligned"):
+        fused.fingerprint_block(x, carry, left, right)
+    assert fused.K1.launches == before
+
+
 def test_corpus_scan_kernel_matches_plain(dev):
     rng = np.random.default_rng(6)
     corpus = rng.integers(0, 2 ** 32, size=(70_001, 2), dtype=np.uint32)

@@ -100,3 +100,40 @@ def test_example_payload_is_the_dispatch_shape():
     p = model.example_payload()
     assert p.shape == (T, H, W) and p.dtype == torch.uint8
     assert p.device.type == "cpu"
+
+
+def test_forward_streams_mixed_carries_and_valid_t_match_jax_batched():
+    """One pass over four streams at different points: a fresh one, two
+    mid-stream (carried from a full and from a short block) and one whose
+    block holds a single real frame; against the JAX batched op."""
+    model = _model()
+    k = 4
+    streams, _ = _streams(k)
+    first = [T, T - 3, T, T]          # round 0 leaves stream 1 on a short block
+    second = [T - 7, 1, T, 5]
+    tc = [model.init_carry() for _ in range(k)]
+    jc = [jax_initial_carry(H, W) for _ in range(k)]
+    blocks0 = [s[:T] for s in streams]
+    _, _, tc0 = model.forward_streams([torch.from_numpy(b) for b in blocks0], tc, first)
+    _, _, jc0 = fingerprint_blocks_batched(jnp.asarray(np.stack(blocks0)), tuple(jc),
+                                           jnp.asarray(first, jnp.int32))
+    tc = [model.init_carry(), *tc0[1:]]
+    jc = (jax_initial_carry(H, W), *jc0[1:])
+    blocks1 = [s[T:2 * T] for s in streams]
+    ts, tf, tcn = model.forward_streams([torch.from_numpy(b) for b in blocks1], tc,
+                                        second)
+    js, jf, jcn = fingerprint_blocks_batched(jnp.asarray(np.stack(blocks1)), jc,
+                                             jnp.asarray(second, jnp.int32))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=SCORE_TOL)
+    x = phash.words_to_numpy(tf) ^ np.asarray(jf, np.uint32)
+    assert np.unpackbits(x.view(np.uint8), axis=-1).sum(-1).max() <= HASH_BITS
+    for a, b in zip(tcn, jcn):
+        np.testing.assert_array_equal(a.scene.prev_frame.numpy(),
+                                      np.asarray(b.scene.prev_frame))
+        # The carried mafd is unscaled (up to 255): XLA's mean and the
+        # port's exact division of the same integer sum may differ by one
+        # float32 ulp, 2^-23 relative.
+        np.testing.assert_allclose(a.scene.prev_mafd.numpy(),
+                                   np.asarray(b.scene.prev_mafd), rtol=2 ** -23,
+                                   atol=0)
+        assert bool(a.scene.has_prev) and bool(b.scene.has_prev)

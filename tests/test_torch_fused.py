@@ -156,3 +156,87 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     x = torch.zeros((T, H, W), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused.fingerprint_block(x, carry, left, right)
+
+
+def test_fingerprint_stream_matches_pallas_interpret():
+    """The whole-stream op (the port of fingerprint_stream_pallas; plain on
+    the CPU): scores against the Pallas kernel in interpret mode, hashes
+    against the JAX fingerprint_block composition chained over the blocks
+    (the Pallas kernel's collapsed operator is looser than 2 bits by its own
+    docstring, fused_pallas.py:23-29)."""
+    n, h, w, bt = 24, 16, 32, 8
+    luma = _content("synthetic", n, h, w)
+    scores, fps = fused.fingerprint_stream(torch.from_numpy(luma))
+    assert scores.shape == (n,) and fps.shape == (n, 2)
+    pallas_scores, _ = fingerprint_stream_pallas(jnp.asarray(luma), block_frames=bt)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(pallas_scores), rtol=0,
+                               atol=SCORE_TOL)
+    jc, jf = jax_initial_carry(h, w), []
+    for s in range(0, n, bt):
+        _, f, jc = jax_fingerprint_block(jnp.asarray(luma[s:s + bt]), jc)
+        jf.append(np.asarray(f))
+    assert _bit_diff(phash.words_to_numpy(fps), np.concatenate(jf)).max() <= HASH_BITS
+
+
+@pytest.mark.parametrize("n", [3 * T, 3 * T + 5, 1, 128 + 3])
+def test_whole_stream_equals_chained_blocks(n):
+    """The whole stream from a fresh carry (one block over every frame, and
+    ``fingerprint_stream``, which chains 128-frame blocks) equals the stream
+    chained in T-frame blocks (the last one short), and the new carry is
+    the last frame's."""
+    luma = torch.from_numpy(_content("random", n, H, W))
+    left, right = phash.hash_operators(H, W, CPU)
+    carry = fused.initial_fingerprint_carry(H, W, CPU)
+    s_all, f_all, c_all = fused.fingerprint_block(luma, carry, left, right)
+    s_st, f_st = fused.fingerprint_stream(luma)
+    s_ch, f_ch = [], []
+    for s in range(0, n, T):
+        sc, fp, carry = fused.fingerprint_block(luma[s:s + T], carry, left, right)
+        s_ch.append(sc)
+        f_ch.append(fp)
+    s_ch, f_ch = torch.cat(s_ch), torch.cat(f_ch)
+    for s_got, f_got in ((s_all, f_all), (s_st, f_st)):
+        np.testing.assert_allclose(s_got.numpy(), s_ch.numpy(), rtol=0,
+                                   atol=SCORE_TOL)
+        assert _bit_diff(phash.words_to_numpy(f_got),
+                         phash.words_to_numpy(f_ch)).max() <= HASH_BITS
+    np.testing.assert_array_equal(c_all.scene.prev_frame.numpy(),
+                                  luma[-1].numpy().astype(np.float32))
+
+
+def test_batched_blocks_need_one_carry_and_count_each():
+    left, right = phash.hash_operators(H, W, CPU)
+    x = torch.zeros((T, H, W), dtype=torch.uint8)
+    carry = fused.initial_fingerprint_carry(H, W, CPU)
+    with pytest.raises(ValueError):
+        fused.fingerprint_blocks_batched([x, x], [carry], [T, T], left, right)
+    with pytest.raises(ValueError):
+        fused.fingerprint_blocks_batched([], [], [], left, right)
+    with pytest.raises(ValueError):
+        fused.fingerprint_blocks_batched([x], [carry], [T + 1], left, right)
+
+
+@pytest.mark.parametrize("op", ["stream", "batched"])
+def test_non_cpu_tensor_never_takes_the_plain_path_stream_and_batch(op):
+    """As for one block: the whole-stream and batched ops run the plain
+    version only on a CPU tensor."""
+    left, right = phash.hash_operators(H, W, CPU)
+    x = torch.zeros((T, H, W), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if op == "stream":
+            fused.fingerprint_stream(x)
+        else:
+            fused.fingerprint_blocks_batched(
+                [x], [fused.initial_fingerprint_carry(H, W, CPU)], [T], left, right)
+
+
+@pytest.mark.parametrize("s,t,h,w", [(1, 128, 90, 160), (4, 128, 90, 160),
+                                     (3, 5, 12, 40), (64, 1, 4, 4)])
+def test_kernel_output_views_are_aligned_and_disjoint(s, t, h, w):
+    """K1's one output buffer: scores, hashes, carry frames, carry mafd and
+    has_prev at 16-byte aligned offsets, none overlapping the next."""
+    *offsets, n = fused._out_layout(s, t, h, w)
+    sizes = (s * t, 2 * s * t, s * h * w, s, -(-s // 4))
+    assert all(o % 4 == 0 for o in offsets)
+    for (o, size), nxt in zip(zip(offsets, sizes), offsets[1:] + [n]):
+        assert o + size <= nxt

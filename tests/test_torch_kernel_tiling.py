@@ -1,5 +1,5 @@
-"""The arithmetic decomposition of kernels K3 and K4, modelled in numpy and
-held against the port's plain versions, on the CPU.
+"""The arithmetic decomposition of kernels K1, K3 and K4, modelled in numpy
+and held against the port's plain versions, on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py).
 These models repeat, step by step, how each kernel splits its work, so
@@ -20,14 +20,24 @@ the wrong CTA, a ring slot overwritten too early) shows here without one:
   (dot + 64) << 24 | (0xffffff - row offset in the range) kept by its
   maximum, and the per-(CTA, query) 64-bit key combine.
 
-Tolerance: exact (integer counts and indices).
+- K1 (``csrc/fingerprint_block.cu``): S segments of T frames cut into
+  contiguous per-CTA ranges; a range starting inside a segment also
+  computes its predecessor's mafd (no hash), a segment's frame 0 takes the
+  carry; a ring of three frame buffers; mafd as an exact integer sum; per
+  row, lanes holding one 4-byte word and one byte of columns with their R
+  rows permuted, a select-free reduce-scatter shuffle tree, L folded in row
+  by row and the warps' sums added in warp order; the carry at valid_t - 1.
+
+Tolerance: exact (integer counts and indices; K1's scores and carries),
+and K1's hashes within 2 bits of the plain version's (float32 sums in
+another order, tests/test_torch_fused.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tvidz_tpu_torch.ops import align, hamming
+from tvidz_tpu_torch.ops import align, fused, hamming, phash
 
 _NO_KEY = (1 << 64) - 1
 _ZERO_KEY = 0x7FFFFFFF                  # score 0 at d = 0
@@ -341,3 +351,180 @@ def test_k4_decomposition_any_grid(grid):
     want = hamming.corpus_min_distance_plain(_t(q), _t(corpus))
     for g, w in zip(got, want):
         assert np.array_equal(g, w.numpy())
+
+
+# -- K1 -----------------------------------------------------------------------
+
+_LANES = np.arange(32)
+
+
+def k1_plan(s, t, grid):
+    """Per CTA of a K1 launch over S segments of T frames: (lo, hi, k0,
+    the source of frame k0's predecessor: "carry" or "load")."""
+    n = s * t
+    plan = []
+    for c in range(min(grid, n)):
+        lo, hi = n * c // min(grid, n), n * (c + 1) // min(grid, n)
+        k0 = lo - 1 if lo % t else lo
+        plan.append((lo, hi, k0, "carry" if k0 % t == 0 else "load"))
+    return plan
+
+
+def _fma(a, b, c):
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _project(frame, left, right):
+    """(64,) float32 low coefficients of one (H, W) frame as K1 sums them."""
+    h_, w_ = frame.shape
+    perm = _LANES >> 2
+    cols = [4 * _LANES + c for c in range(4)] + [128 + _LANES]
+    # rw[c][lane, q] = R[q ^ perm][col], 0 past W.
+    rw = [np.where((col < w_)[:, None],
+                   right[(np.arange(8)[None, :] ^ perm[:, None]),
+                         np.minimum(col, w_ - 1)[:, None]], np.float32(0))
+          for col in cols]
+    left_t = left.T
+    part = np.zeros((8, 64), np.float32)
+    for warp in range(8):
+        low0 = np.zeros(32, np.float32)
+        low1 = np.zeros(32, np.float32)
+        for h in range(warp, h_, 8):
+            x = [np.where(col < w_, frame[h, np.minimum(col, w_ - 1)], 0)
+                 .astype(np.float32) for col in cols]
+            a = (x[0][:, None] * rw[0]).astype(np.float32)
+            for c in range(1, 5):
+                a = _fma(x[c][:, None], rw[c], a)
+            for off, half in ((16, 4), (8, 2)):
+                a = (a[:, :half] + a[_LANES ^ off, half:2 * half]).astype(np.float32)
+            d = (a[:, 0] + a[_LANES ^ 4, 1]).astype(np.float32)
+            d = (d + d[_LANES ^ 2]).astype(np.float32)
+            d = (d + d[_LANES ^ 1]).astype(np.float32)
+            j = _LANES & 3
+            low0 = _fma(left_t[h, 2 * j], d, low0)
+            low1 = _fma(left_t[h, 2 * j + 1], d, low1)
+        part[warp, 2 * (_LANES & 3) * 8 + perm] = low0
+        part[warp, (2 * (_LANES & 3) + 1) * 8 + perm] = low1
+    low = part[0].copy()
+    for warp in range(1, 8):
+        low = (low + part[warp]).astype(np.float32)
+    return low
+
+
+def k1_model(lumas, carries, valid_ts, left, right, grid):
+    """(scores (S, T), fps (S, T, 2) uint32, new carries) as K1 computes
+    them on ``grid`` CTAs; carries are (frame, mafd, has_prev)."""
+    s_, t_, h_, w_ = lumas.shape
+    hw = np.float32(h_ * w_)
+    scores = np.full((s_, t_), np.nan, np.float32)
+    lows = np.full((s_, t_, 64), np.nan, np.float32)
+    new = [None] * s_
+    for lo, hi, k0, _ in k1_plan(s_, t_, grid):
+        seg, t = divmod(k0, t_)
+        ring = [carries[seg][0].astype(np.uint8) if t == 0 else lumas[seg, t - 1],
+                lumas[seg, t], None]
+        fresh, carried = not carries[seg][2], np.float32(carries[seg][1])
+        prev_m = np.float32(0)
+        for i, k in enumerate(range(k0, hi)):
+            pred, cur = ring[i % 3], ring[(i + 1) % 3]
+            if i > 0:
+                t += 1
+                if t == t_:
+                    seg, t = seg + 1, 0
+                    pred = carries[seg][0].astype(np.uint8)
+                    fresh, carried = not carries[seg][2], np.float32(carries[seg][1])
+            if k + 1 < hi:
+                s1, t1 = divmod(k + 1, t_)
+                ring[(i + 2) % 3] = lumas[s1, t1]
+            total = int(np.abs(cur.astype(np.int32) - pred.astype(np.int32)).sum())
+            start = t == 0 and fresh
+            m = np.float32(0) if start else np.float32(total) / hw
+            if k >= lo:
+                lows[seg, t] = _project(cur, left, right)
+                pm = carried if t == 0 else prev_m
+                sc = np.minimum(m, np.abs(m - pm)) / np.float32(100)
+                scores[seg, t] = 0 if start else np.clip(sc, 0, 1)
+                if t == valid_ts[seg] - 1:
+                    new[seg] = (cur.astype(np.float32), m, True)
+            prev_m = m
+    bits = phash.median_threshold_bits(torch.from_numpy(lows.reshape(-1, 64)), 8)
+    fps = phash.words_to_numpy(phash.pack_bits_i32(bits)).reshape(s_, t_, 2)
+    return scores, fps, new
+
+
+def _k1_case(h, w, seed=23, s=3, t=5):
+    """(lumas (S, T, H, W), carries, valid_ts): stream 0 fresh, 1 and 2
+    mid-stream (carried from a block before), one with a short block."""
+    rng = np.random.default_rng(seed)
+    lumas = rng.integers(0, 256, size=(s, t, h, w), dtype=np.uint8)
+    lumas[1, 2:] = lumas[1, 1]                         # a still: mafd 0
+    carries = [(np.zeros((h, w), np.float32), np.float32(0), False)]
+    for j in range(1, s):
+        carries.append((rng.integers(0, 256, size=(h, w)).astype(np.float32),
+                        np.float32(rng.uniform(0, 80)), True))
+    return lumas, carries, [t, 2, t][:s]
+
+
+def _torch_carry(c):
+    return fused.FingerprintCarry(scene=fused.SceneCarry(
+        prev_frame=torch.from_numpy(c[0]), prev_mafd=torch.tensor(c[1]),
+        has_prev=torch.tensor(c[2])))
+
+
+K1_GEOMETRIES = [(12, 40), (6, 136), (8, 160)]
+
+
+@pytest.mark.parametrize("s,t,grid", [(1, 128, 128), (1, 128, 100),
+                                      (3, 5, 4), (3, 5, 15), (4, 7, 9),
+                                      (1, 1 << 17, 396)])
+def test_k1_plan_covers_every_frame_once(s, t, grid):
+    """The ranges cover the S*T frames once, in order; a range takes its
+    first frame's predecessor from the carry exactly at a segment's frame
+    0, else it starts one frame early (that frame's mafd only)."""
+    plan = k1_plan(s, t, grid)
+    assert plan[0][0] == 0 and plan[-1][1] == s * t
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    assert all(hi > lo for lo, hi, _, _ in plan)
+    for lo, hi, k0, src in plan:
+        assert k0 == (lo if lo % t == 0 else lo - 1)
+        assert (src == "carry") == (k0 % t == 0)
+
+
+@pytest.mark.parametrize("h,w", K1_GEOMETRIES)
+@pytest.mark.parametrize("grid", [1, 4, 15])
+def test_k1_decomposition_equals_plain(h, w, grid):
+    """Per stream, scores and carries equal the plain version's exactly and
+    hashes are within 2 bits of them, for a grid whose ranges start at, in
+    and across segments."""
+    lumas, carries, valid = _k1_case(h, w)
+    sc, fp, new = k1_model(lumas, carries, valid, *phash.hash_operators_np(h, w),
+                           grid)
+    left, right = phash.hash_operators(h, w, torch.device("cpu"))
+    for j in range(lumas.shape[0]):
+        ps, pf, pc = fused.fingerprint_block_plain(
+            torch.from_numpy(lumas[j]), _torch_carry(carries[j]), left, right,
+            valid_t=valid[j])
+        assert np.array_equal(sc[j], ps.numpy())
+        diff = np.unpackbits((fp[j] ^ phash.words_to_numpy(pf)).view(np.uint8),
+                             axis=-1).sum(-1)
+        assert diff.max() <= 2, diff
+        assert np.array_equal(new[j][0], pc.scene.prev_frame.numpy())
+        assert new[j][1] == pc.scene.prev_mafd.item() and bool(pc.scene.has_prev)
+
+
+@pytest.mark.parametrize("h,w", K1_GEOMETRIES)
+def test_k1_decomposition_does_not_depend_on_the_grid(h, w):
+    """A frame's hash and score are the same bits whether its CTA's range
+    holds it alone, starts at it or runs through it, and whether the
+    segments are launched together or one at a time (the batch and the
+    whole stream equal lone and chained launches)."""
+    lumas, carries, valid = _k1_case(h, w)
+    ops = phash.hash_operators_np(h, w)
+    want = k1_model(lumas, carries, valid, *ops, 1)
+    for grid in (2, 7, 15):
+        got = k1_model(lumas, carries, valid, *ops, grid)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    for j in range(lumas.shape[0]):
+        lone = k1_model(lumas[j:j + 1], carries[j:j + 1], valid[j:j + 1], *ops, 3)
+        assert np.array_equal(lone[0][0], want[0][j])
+        assert np.array_equal(lone[1][0], want[1][j])

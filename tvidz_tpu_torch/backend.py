@@ -168,7 +168,10 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current CUDA stream of ``device`` (an index-bearing device, as
+    ``resolve_device`` gives), by PyTorch's raw-stream query: a kernel call
+    pays for this on every launch."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def require(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None,

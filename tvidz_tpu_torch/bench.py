@@ -4,9 +4,11 @@
 
 Legs (the JAX harness's function each one ports):
 
-- ``fingerprint``  (``bench_fingerprint_throughput``): K1 streaming 256-frame
-  90x160 blocks with the scene carry threaded through -> ``value``
-  (median frames/s).
+- ``fingerprint``  (``bench_fingerprint_throughput``): K1 over 512 x 256
+  contiguous 90x160 frames, one launch a loop with the scene carry
+  threaded through (single dispatch, as the JAX harness) -> ``value``
+  (median frames/s); the same frames issued one 256-frame block a launch
+  -> ``fingerprint_per_block_frames_per_sec``.
 - ``verdict``      (``bench_verdict_latency``): the corpus-scan race at
   M=128 against 2^20 and 2^24 random rows -> ``verdict_{1m,16m}_device_ms``
   and ``verdict_compares_per_sec`` (the fastest full-contract variant),
@@ -197,35 +199,56 @@ def _best(rows: List[dict], contract: str, key: str) -> Optional[dict]:
     return min(cands, key=lambda r: r[key]) if cands else None
 
 
-def bench_fingerprint_throughput(dev, sz) -> dict:
-    """K1 over ``fp_blocks`` blocks of ``fp_block`` random frames, the scene
-    carry threaded across blocks and passes; frames/s per pass (median and
-    best of ``fp_reps``), synchronised once per pass."""
-    t_blk, n_blk, loops = sz["fp_block"], sz["fp_blocks"], sz["fp_loops"]
-    gen = _generator(dev, 0)
-    data = torch.randint(0, 256, (n_blk, t_blk, FP_HEIGHT, FP_WIDTH),
-                         dtype=torch.uint8, device=dev, generator=gen)
-    left, right = phash.hash_operators(FP_HEIGHT, FP_WIDTH, dev)
-    carry = fused.initial_fingerprint_carry(FP_HEIGHT, FP_WIDTH, dev)
-
-    def one_pass(carry):
-        for _ in range(loops):
-            for b in range(n_blk):
-                _, _, carry = fused.fingerprint_block(data[b], carry, left, right)
-        _sync(dev)
-        return carry
-
+def _frames_per_s(one_pass, carry, frames: int, reps: int):
+    """(median, best) frames/s of ``reps`` timed passes after a warm-up
+    pass; each pass threads ``carry`` on and ends in one synchronise."""
     carry = one_pass(carry)                                          # warm-up
     times = []
-    for _ in range(sz["fp_reps"]):
+    for _ in range(reps):
         t0 = time.perf_counter()
         carry = one_pass(carry)
         times.append(time.perf_counter() - t0)
+    return frames / float(np.median(times)), frames / float(np.min(times))
+
+
+def bench_fingerprint_throughput(dev, sz) -> dict:
+    """Single-dispatch streaming throughput, as ``bench.py``'s
+    ``bench_fingerprint_throughput`` measures it: ``fp_blocks`` x
+    ``fp_block`` contiguous random frames fingerprinted by one K1 launch
+    per loop, ``fp_loops`` loops a pass with the scene carry threaded
+    through, one synchronise per pass; frames/s per pass, median and best
+    of ``fp_reps``. The same frames issued from Python one ``fp_block``
+    block at a time (one launch each) are logged beside it."""
+    t_blk, n_blk, loops = sz["fp_block"], sz["fp_blocks"], sz["fp_loops"]
+    gen = _generator(dev, 0)
+    data = torch.randint(0, 256, (n_blk * t_blk, FP_HEIGHT, FP_WIDTH),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    left, right = phash.hash_operators(FP_HEIGHT, FP_WIDTH, dev)
+    carry = fused.initial_fingerprint_carry(FP_HEIGHT, FP_WIDTH, dev)
     frames = n_blk * t_blk * loops
-    med, best = frames / float(np.median(times)), frames / float(np.min(times))
-    _log(f"fingerprint: median {med:,.0f} / best {best:,.0f} frames/s "
-         f"({frames} frames per pass, {t_blk}-frame {FP_HEIGHT}x{FP_WIDTH} blocks)")
-    return {"median": med, "best": best}
+
+    def stream_pass(carry):
+        for _ in range(loops):
+            _, _, carry = fused.fingerprint_block(data, carry, left, right)
+        _sync(dev)
+        return carry
+
+    def block_pass(carry):
+        for _ in range(loops):
+            for b in range(0, n_blk * t_blk, t_blk):
+                _, _, carry = fused.fingerprint_block(data[b:b + t_blk], carry,
+                                                      left, right)
+        _sync(dev)
+        return carry
+
+    med, best = _frames_per_s(stream_pass, carry, frames, sz["fp_reps"])
+    blk_med, blk_best = _frames_per_s(block_pass, carry, frames, sz["fp_reps"])
+    _log(f"fingerprint: median {med:,.0f} / best {best:,.0f} frames/s, one "
+         f"launch over {n_blk * t_blk} frames per loop ({frames} frames per "
+         f"pass, {FP_HEIGHT}x{FP_WIDTH}); issued per {t_blk}-frame block: "
+         f"median {blk_med:,.0f} / best {blk_best:,.0f} frames/s")
+    return {"median": med, "best": best, "per_block_median": blk_med,
+            "per_block_best": blk_best}
 
 
 def bench_verdict_latency(dev, sz, n: int) -> dict:
@@ -351,8 +374,10 @@ def run(device=None, sizes: str = "full", legs=LEGS) -> dict:
         if on_card:
             rec["value"] = fp["median"]
             rec["fingerprint_best_frames_per_sec"] = fp["best"]
+            rec["fingerprint_per_block_frames_per_sec"] = fp["per_block_median"]
         else:
             rec["host"]["fingerprint_frames_per_sec"] = fp["median"]
+            rec["host"]["fingerprint_per_block_frames_per_sec"] = fp["per_block_median"]
     if "verdict" in legs:
         for n, tag in zip(sz["verdict_n"], ("1m", "16m")):
             v = bench_verdict_latency(dev, sz, n)

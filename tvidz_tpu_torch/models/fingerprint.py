@@ -27,6 +27,7 @@ from tvidz_tpu_torch.decode import get_decoder
 from tvidz_tpu_torch.ops.fused import (
     FingerprintCarry,
     fingerprint_block,
+    fingerprint_blocks_batched,
     initial_fingerprint_carry,
 )
 from tvidz_tpu_torch.ops.phash import hash_operators, words_to_numpy
@@ -87,15 +88,12 @@ class FingerprintModel:
 
     def forward_streams(self, lumas, carries, valid_ts):
         """K independent streams' (T, H, W) blocks in one pass: ((K, T)
-        scores, (K, T, words) int32 fps, tuple of K carries). Each stream
-        is its own ``forward`` (K1 takes one stream and its carry), so
-        stream k's results equal a lone ``forward`` of it bit for bit.
+        scores, (K, T, words) int32 fps, tuple of K carries), through
+        ``fingerprint_blocks_batched`` (one K1 launch on CUDA), so stream
+        k's results equal a lone ``forward`` of it bit for bit.
         ``valid_ts``: each block's real frame count (T for a full block)."""
-        out = [self.forward(luma, carry, valid_t=int(vt))
-               for luma, carry, vt in zip(lumas, carries, valid_ts)]
-        return (torch.stack([o[0] for o in out]),
-                torch.stack([o[1] for o in out]),
-                tuple(o[2] for o in out))
+        return fingerprint_blocks_batched(lumas, carries, valid_ts, self.left,
+                                          self.right)
 
     def example_payload(self) -> torch.Tensor:
         """A zero (T, H, W) uint8 block at the model's dispatch shape (warm
