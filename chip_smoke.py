@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Quickest proof that tvidz_tpu_torch runs on the GPU: build its kernels,
 check each against its plain PyTorch version (K1 on chained blocks, on the
-dispatcher's batch of streams and on a whole stream, each one launch; K3,
+dispatcher's batch of streams and on a whole stream, each one launch, at the
+production 90x160 and at every scene geometry its second form takes; K3,
 K4's five modes and K2's frame_min-only switch exactly, ties across K4's
-CTA ranges included), drive
+CTA ranges included, at 64-bit and other word widths and past one launch's
+16,384 queries), drive
 ``ingest`` / ``analyze`` / ``search`` through the port's CLI, the two
-corpus scans (``search_fingerprints``, ``nearest_video_counts``), the
-inspector service (uploads over the fake S3 -> SQS path, SSE, fragment and
-video search) and a short ``bench`` against a 2^20-fingerprint corpus, and
-time it. Launch counts are zeroed before and read after each of those paths.
+corpus scans (``search_fingerprints``, ``nearest_video_counts``, the latter
+with a 40,000-frame query), the inspector service (uploads over the fake S3
+-> SQS path, SSE, fragment and video search, a 16,500-frame video among
+them) and a short ``bench`` against a 2^20-fingerprint corpus, then the
+same CLI and searches under ``TVIDZ_HASH_ALGO=phash256`` (8-word
+fingerprints through K3 and K4), and time it. Launch counts are zeroed
+before and read after each of those paths.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OLD_ROOT
@@ -52,6 +57,17 @@ FILLER_VIDEOS, FILLER_FP_VIDEOS, FILLER_FP_FRAMES = 8192, 256, 4096
 K1_STREAMS = 4          # the dispatcher's pass in k1_vs_plain
 K1_STREAM_FRAMES = 4096 + 77                # a ragged whole stream
 K1_VALUE_FRAMES = 512 * 256                 # the bench's single-dispatch pass
+# K1's second form: the reference's edge geometries (tests/test_edge_parity.py)
+# and what TVIDZ_SCENE_HEIGHT / TVIDZ_SCENE_WIDTH reach; 90x160 and 8x8 take
+# the first form.
+ODD_GEOMETRIES = ((91, 163), (33, 47), (720, 1280), (8, 8), (180, 320),
+                  (90, 162), (90, 160))
+K1_TIMED_GEOMETRIES = ((180, 320), (720, 1280))
+WIDE_WORDS = (1, 3, 8)                      # K2 and K4 at other word widths
+PHASH256_WORDS = 8
+BIG_M = (16_385, 40_000)                    # queries past one launch
+LONG_VIDEO_FRAMES = 16_500                  # a /search/video past one launch
+K3_WIDE_THRS = (0, 40, 100)
 SCORE_TOL = 1e-6        # mafd sums are integer-exact: bit-equal expected
 HASH_BITS_TOL = 2       # f32 sums in another order (tests/test_ops_phash.py)
 # The carried mafd is unscaled (up to 255). K1 divides the exact sum by
@@ -236,14 +252,22 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def k1_bound(frames: int):
-    """K1 over ``frames`` frames: the frames, the carry frame in and out,
-    scores and hashes; per frame the factored DCT (2*8*H*W + 2*8*8*H) and
-    mafd (3*H*W) in fp32."""
+def k1_bound(frames: int, h: int = HEIGHT, w: int = WIDTH):
+    """K1 over ``frames`` frames of (h, w): the frames, the carry frame in
+    and out, scores and hashes; per frame the factored DCT (2*8*H*W +
+    2*8*8*H) and mafd (3*H*W) in fp32."""
     return bound(
-        frames * HEIGHT * WIDTH + 2 * 4 * HEIGHT * WIDTH + frames * 12,
-        frames * (2 * 8 * HEIGHT * WIDTH + 2 * 64 * HEIGHT + 3 * HEIGHT * WIDTH),
+        frames * h * w + 2 * 4 * h * w + frames * 12,
+        frames * (2 * 8 * h * w + 2 * 64 * h + 3 * h * w),
         FP32_OPS_PER_S)
+
+
+def scan_bound(m: int, n: int, words: int):
+    """A corpus scan (query-nearest) of m queries against n rows of
+    ``words`` words: corpus and queries in, q_min and q_arg out; 32 W int8
+    multiply-adds per pair."""
+    return bound(4 * words * (n + m) + 8 * m, 2 * 32 * words * m * n,
+                 INT8_TC_OPS_PER_S)
 
 
 # -- phase 3: K1 -----------------------------------------------------------------
@@ -314,6 +338,86 @@ def check_fingerprint_block(dev):
           frames_not_bit_identical=differing, median_pack_rows_exact=low.shape[0],
           batch=batch, stream=stream)
     return max_err
+
+
+def check_k1_geometries(dev) -> dict:
+    """K1 at every scene geometry of ODD_GEOMETRIES (the second form at all
+    but 90x160 and 8x8): chained blocks of random frames against the plain
+    version (scores, carry frame, carried mafd in ulps, hash bits), the
+    whole stream one launch bit-equal to the chained launches, the first
+    frames within HASH_BITS_TOL of golden.phash; and a K=4 batch of
+    misaligned blocks at 91x163, one launch, bit-equal to lone launches."""
+    import numpy as np
+    import torch
+
+    from tvidz_tpu_torch.ops import fused, golden, phash
+
+    rows, err, bits_max, ulps_max = [], 0.0, 0, 0.0
+    for h, w in ODD_GEOMETRIES:
+        rng = np.random.default_rng(SEED + h + w)
+        t = FRAMES if h * w < 500_000 else 32
+        luma = rng.integers(0, 256, size=(2 * t + 7, h, w), dtype=np.uint8)
+        x = torch.from_numpy(luma).to(dev)
+        left, right = phash.hash_operators(h, w, dev)
+        ck = fused.initial_fingerprint_carry(h, w, dev)
+        cp = fused.initial_fingerprint_carry(h, w, dev)
+        chained, e, b, u, differing = [], 0.0, 0, 0.0, 0
+        for s0 in range(0, x.shape[0], t):
+            sk, fk, ck = fused.fingerprint_block(x[s0:s0 + t], ck, left, right)
+            sp, fp, cp = fused.fingerprint_block_plain(x[s0:s0 + t], cp, left, right)
+            torch.cuda.synchronize()
+            chained.append((sk, fk))
+            e = max(e, (sk - sp).abs().max().item())
+            hb = hash_bits(fk, fp)
+            b, differing = max(b, int(hb.max())), differing + int((hb > 0).sum())
+            check(torch.equal(ck.scene.prev_frame, cp.scene.prev_frame),
+                  f"K1 {h}x{w}: carry frame differs from the plain version")
+            u = max(u, mafd_ulps(ck.scene.prev_mafd, cp.scene.prev_mafd))
+        ss, fs = one_launch(lambda: fused.fingerprint_stream(x), f"K1 stream {h}x{w}")
+        torch.cuda.synchronize()
+        check(torch.equal(ss, torch.cat([c[0] for c in chained]))
+              and torch.equal(fs, torch.cat([c[1] for c in chained])),
+              f"K1 {h}x{w}: the stream differs from its chained launches")
+        gold = np.stack([golden.phash(f) for f in luma[:4]])
+        gold_bits = int(popcount_rows(phash.words_to_numpy(fs[:4]) ^ gold).max())
+        check(e <= SCORE_TOL and b <= HASH_BITS_TOL and u <= MAFD_ULPS_TOL
+              and gold_bits <= HASH_BITS_TOL,
+              f"K1 {h}x{w}: scores {e}, hash bits {b}, carried mafd {u} ulps, "
+              f"golden bits {gold_bits}")
+        rows.append({"hw": [h, w], "form": fused.k1_form(h, w), "block_frames": t,
+                     "grid": fused.fingerprint_grid(t, h, w), "frames": int(x.shape[0]),
+                     "score_max_abs_err": e, "hash_max_bit_diff": b,
+                     "frames_not_bit_identical": differing,
+                     "carry_mafd_max_ulps": u, "golden_max_bit_diff": gold_bits,
+                     "stream_bit_equal_to_chained": True})
+        err, bits_max, ulps_max = max(err, e), max(bits_max, b), max(ulps_max, u)
+        del x
+    # The dispatcher's pass at an odd geometry, blocks at odd addresses.
+    h, w, t = 91, 163, 64
+    rng = np.random.default_rng(SEED + 11)
+    left, right = phash.hash_operators(h, w, dev)
+    flat = torch.from_numpy(rng.integers(0, 256, size=(4 * t * h * w + 3,),
+                                         dtype=np.uint8)).to(dev)
+    blocks = [flat[3 + k * t * h * w:3 + (k + 1) * t * h * w].view(t, h, w)
+              for k in range(4)]
+    carries = [fused.initial_fingerprint_carry(h, w, dev) for _ in range(4)]
+    carries[2] = fused.fingerprint_block(blocks[0], carries[0], left, right)[2]
+    valid = [t, 1, 33, t]
+    sb, fb, cb = one_launch(lambda: fused.fingerprint_blocks_batched(
+        blocks, carries, valid, left, right), "K1 batch at 91x163")
+    for j in range(4):
+        s1, f1, c1 = fused.fingerprint_block(blocks[j], carries[j], left, right,
+                                             valid_t=valid[j])
+        torch.cuda.synchronize()
+        check(torch.equal(sb[j], s1) and torch.equal(fb[j], f1)
+              and all(torch.equal(a, b) for a, b in zip(cb[j].scene, c1.scene)),
+              f"K1 batch at 91x163: stream {j} differs from a lone launch")
+    phase("k1_any_geometry", geometries=rows, score_tol=SCORE_TOL,
+          hash_bits_tol=HASH_BITS_TOL, carry_mafd_ulps_tol=MAFD_ULPS_TOL,
+          batch_91x163={"streams": 4, "valid_t": valid, "misaligned": True,
+                        "bit_equal_to_lone_launches": True})
+    return {"score_max_abs_err": err, "hash_max_bit_diff": bits_max,
+            "carry_mafd_max_ulps": ulps_max}
 
 
 def hash_bits(a, b):
@@ -434,15 +538,15 @@ THREAD_TIE = {20: (256 * 2001 + 77, 256 * 2000 + 77)}
 ARGMIN_MODES = ("full", "full_cols", "twophase", "query_nearest")
 
 
-def planted(dev) -> tuple:
+def planted(dev, words: int = 2) -> tuple:
     """(query -> rows holding an exact copy, the lower one the argmin;
-    {mode: K4's grid for SCAN_N rows}): TILE_TIES, THREAD_TIE and ties
-    across the range edges of CTAs 1 and grid / 2 of each argmin mode's
-    grid."""
+    {mode: K4's grid for SCAN_N rows of ``words`` words}): TILE_TIES,
+    THREAD_TIE and ties across the range edges of CTAs 1 and grid / 2 of
+    each argmin mode's grid."""
     from tvidz_tpu_torch.ops import hamming
 
     tiles = SCAN_N // 256
-    grids = {mode: hamming.corpus_scan_tc_grid(mode, SCAN_N, dev)
+    grids = {mode: hamming.corpus_scan_tc_grid(mode, SCAN_N, dev, words)
              for mode in hamming.MODES}
     check(all(1 < g <= tiles for g in grids.values()),
           f"K4 grids {grids} for {tiles} tiles: no range edge to plant at")
@@ -452,15 +556,16 @@ def planted(dev) -> tuple:
             **{21 + i: (e, e - 1) for i, e in enumerate(edges)}}, grids
 
 
-def scan_inputs(dev, ties):
-    """(q, corpus) at (SCAN_M, SCAN_N), seeded, with sentinel rows, exact
-    and near ties, and a copy of q[k] at each row of ``ties[k]``."""
+def scan_inputs(dev, ties, words: int = 2):
+    """(q, corpus) at (SCAN_M, SCAN_N) of ``words``-word rows, seeded, with
+    sentinel rows, exact and near ties, and a copy of q[k] at each row of
+    ``ties[k]``."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(SEED + 1)
-    corpus = rng.integers(0, 2 ** 32, size=(SCAN_N, 2), dtype=np.uint32)
-    q = rng.integers(0, 2 ** 32, size=(SCAN_M, 2), dtype=np.uint32)
+    corpus = rng.integers(0, 2 ** 32, size=(SCAN_N, words), dtype=np.uint32)
+    q = rng.integers(0, 2 ** 32, size=(SCAN_M, words), dtype=np.uint32)
     corpus[-4096:] = 0xFFFFFFFF                     # sentinel padding rows
     corpus[[1000, 500_000]] = q[3]                  # exact hits, a tie
     corpus[[70_000, 900_000, 900_001]] = q[5] ^ np.uint32(1)   # dist-2 ties
@@ -475,16 +580,19 @@ def scan_inputs(dev, ties):
     return to(q), to(corpus)
 
 
-def check_planted(name, ties, q_min, q_arg, n=SCAN_N):
-    """The planted answers of ``scan_inputs(dev, ties)`` (M > max(ties))."""
+def check_planted(name, ties, q_min, q_arg, n=SCAN_N, words=2):
+    """The planted answers of ``scan_inputs(dev, ties, words)`` (M >
+    max(ties))."""
     check(int(q_min[3]) == 0 and int(q_arg[3]) == 1000, f"{name} missed the planted tie")
-    check(int(q_min[5]) == 2 and int(q_arg[5]) == 70_000, f"{name} missed a dist-2 tie")
+    check(int(q_min[5]) == words and int(q_arg[5]) == 70_000,
+          f"{name} missed a dist-{words} tie")
     check(int(q_arg[9]) == 2048 * 7 + 1023, f"{name} tie across a CTA edge")
     for k, rows in ties.items():
         check(int(q_min[k]) == 0 and int(q_arg[k]) == min(rows),
               f"{name} tie of q[{k}] across tiles: {int(q_arg[k])} != {min(rows)}")
-    check(int(q_min[17]) == 4 and int(q_arg[17]) == min(GATE_TIE),
-          f"{name} dist-4 tie behind the gate: {int(q_min[17])}, {int(q_arg[17])}")
+    check(int(q_min[17]) == 2 * words and int(q_arg[17]) == min(GATE_TIE),
+          f"{name} dist-{2 * words} tie behind the gate: {int(q_min[17])}, "
+          f"{int(q_arg[17])}")
     if n == SCAN_N:
         check(int(q_min[11]) == 0 and int(q_arg[11]) == SCAN_N - 4096,
               f"{name} sentinel rows not scanned like the reference")
@@ -519,7 +627,8 @@ def more_queries(q, m):
     import torch
 
     rng = np.random.default_rng(SEED + 5)
-    extra = rng.integers(0, 2 ** 32, size=(m - q.shape[0], 2), dtype=np.uint32)
+    extra = rng.integers(0, 2 ** 32, size=(m - q.shape[0], q.shape[1]),
+                         dtype=np.uint32)
     return torch.cat([q, torch.from_numpy(extra.view(np.int32)).to(q.device)])
 
 
@@ -573,28 +682,86 @@ def check_scan_modes(dev):
     return float(err)
 
 
+def check_wide_scans(dev) -> float:
+    """K4's five modes and K2's two entry points at WIDE_WORDS word widths
+    (M=128, N=2^20, the planted ties of ``scan_inputs`` at the range edges
+    of the grid K4 reports for each W; and M=37, N=3000 at W=5), and at W=2
+    and W=8 past one launch's 16,384 queries (BIG_M, N=8192): every output
+    equal to the plain XOR scan."""
+    import torch
+
+    from tvidz_tpu_torch.ops import hamming
+
+    err, checked = 0, []
+
+    def against_plain(name, q, corpus, ties=None, words=2):
+        nonlocal err
+        want = hamming.corpus_min_distance_plain(q, corpus)
+        got = {f"k4_{mode}": hamming.corpus_scan_tc(q, corpus, mode)
+               for mode in hamming.MODES}
+        got["k2"] = hamming.corpus_min_distance(q, corpus)
+        got["k2_frame_min"] = (hamming.corpus_frame_min_xor(q, corpus), None, None)
+        torch.cuda.synchronize()
+        for variant, outs in got.items():
+            for o, w in zip(outs, want):
+                if o is not None:
+                    err = max(err, (o - w).abs().max().item())
+                    check(torch.equal(o, w),
+                          f"{variant} differs from the plain version at {name}")
+            if ties is not None and outs[2] is not None:
+                check_planted(f"{variant} ({name})", ties, outs[1], outs[2],
+                              words=words)
+
+    for words in WIDE_WORDS:
+        ties, grids = planted(dev, words)
+        q, corpus = scan_inputs(dev, ties, words)
+        against_plain(f"w{words}", q, corpus, ties, words)
+        checked.append({"words": words, "m": SCAN_M, "n": SCAN_N,
+                        "grids": grids})
+        del corpus
+    ties, _ = planted(dev, 5)
+    q, corpus = scan_inputs(dev, ties, 5)
+    against_plain("w5_small", q[:37], corpus[:3000])
+    checked.append({"words": 5, "m": 37, "n": 3000})
+    for words in (2, PHASH256_WORDS):
+        q, corpus = scan_inputs(dev, {}, words)
+        for m in BIG_M:
+            before = (hamming.K4.launches, hamming.K2.launches)
+            against_plain(f"w{words}_m{m}", more_queries(q, m), corpus[:8192])
+            chunks = -(-m // 16_384)
+            check(hamming.K4.launches - before[0] == len(hamming.MODES) * chunks
+                  and hamming.K2.launches - before[1] == 2 * chunks,
+                  f"M={m}: {hamming.K4.launches - before[0]} K4 launches, "
+                  f"{hamming.K2.launches - before[1]} K2, not {chunks} per call")
+            checked.append({"words": words, "m": m, "n": 8192,
+                            "launches_per_call": chunks})
+    phase("k4_k2_any_width", modes=list(hamming.MODES),
+          also=["k2", "k2_frame_min"], max_abs_err=err, exact=True, cases=checked)
+    return float(err)
+
+
 # -- phase 5: K3 -----------------------------------------------------------------
 
 
-def fragment_inputs(dev, shape, seed):
+def fragment_inputs(dev, shape, seed, words: int = 2):
     """Seeded (queries, q_lens, corpus, lens) at ``shape`` = (Q, Tq_pad, V,
-    Tc) as device int32 views, with, per query q: a fragment of video
-    7 + (31 q mod (V - 7)) taken at offset 100 + q with 3-bit damage on every
-    4th frame; video 5 cut short; video 6 empty. Video 7 repeats a 50-frame
-    period, so a query taken from it scores its maximum at every offset
-    congruent to its start modulo 50 (ties across tiles), and the answer is
-    the first of them. Returns the expected
+    Tc) of ``words``-word rows as device int32 views, with, per query q: a
+    fragment of video 7 + (31 q mod (V - 7)) taken at offset 100 + q with
+    3-bit damage on every 4th frame; video 5 cut short; video 6 empty.
+    Video 7 repeats a 50-frame period, so a query taken from it scores its
+    maximum at every offset congruent to its start modulo 50 (ties across
+    tiles), and the answer is the first of them. Returns the expected
     (video, offset, q_len) per query too."""
     import numpy as np
     import torch
 
     qn, tq_pad, v, tc = shape
     rng = np.random.default_rng(seed)
-    corpus = rng.integers(0, 2 ** 32, size=(v, tc, 2), dtype=np.uint32)
+    corpus = rng.integers(0, 2 ** 32, size=(v, tc, words), dtype=np.uint32)
     lens = np.full(v, tc, np.int32)
     lens[5], lens[6] = tc // 3, 0
-    corpus[7] = np.resize(corpus[7, :50], (tc, 2))
-    qs = rng.integers(0, 2 ** 32, size=(qn, tq_pad, 2), dtype=np.uint32)
+    corpus[7] = np.resize(corpus[7, :50], (tc, words))
+    qs = rng.integers(0, 2 ** 32, size=(qn, tq_pad, words), dtype=np.uint32)
     q_lens = np.asarray([tq_pad - 37 * q for q in range(qn)], np.int32)
     plants = []
     for q in range(qn):
@@ -668,6 +835,37 @@ def check_fragment_search(dev):
                         "max_score": int(got[1].max())})
     phase("k3_vs_plain", threshold=FRAG_THR, max_abs_err=err, exact=True,
           shapes=checked)
+    return float(err)
+
+
+def check_k3_wide(dev) -> float:
+    """K3 at W = 8 (phash256) at shape (a): the planted fragments and
+    thresholds K3_WIDE_THRS, and a bucket of identical rows, each equal to
+    the plain version."""
+    import torch
+
+    from tvidz_tpu_torch.ops import align
+
+    err, checked = 0, []
+    (qs, q_lens, corpus, lens), plants = fragment_inputs(
+        dev, FRAG_A, SEED + 3, PHASH256_WORDS)
+    dense_c, dense_q = dense_inputs(corpus, qs)
+    for name, q_, c_, thr in ([(f"thr{t}", qs, corpus, t) for t in K3_WIDE_THRS]
+                              + [("dense", dense_q, dense_c, FRAG_THR)]):
+        got = align.fragment_search_batch(q_, q_lens, c_, lens, thr)
+        want = align.fragment_search_batch_plain(q_, q_lens, c_, lens, thr)
+        torch.cuda.synchronize()
+        err = max(err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K3 at W=8 differs from the plain version at {name}")
+        if name == "thr40":
+            for q, (row, off, n) in enumerate(plants):
+                check(int(got[1][q, row]) == n and int(got[0][q, row]) == off,
+                      f"K3 at W=8 missed the planted fragment of query {q}")
+        checked.append({"case": name, "threshold": thr,
+                        "max_score": int(got[1].max())})
+    phase("k3_w8", words=PHASH256_WORDS, shape=list(FRAG_A), max_abs_err=err,
+          exact=True, cases=checked)
     return float(err)
 
 
@@ -885,10 +1083,11 @@ def race_against(old_root: str, smi: str) -> None:
 # -- phase 6: the main path --------------------------------------------------------
 
 
-def prefill_store(db_path: str) -> int:
+def prefill_store(db_path: str, words: int = 2) -> int:
     """A realistic corpus, seeded: FILLER_VIDEOS videos with timestamps and
-    FILLER_FP_VIDEOS x FILLER_FP_FRAMES (= 2^20) random fingerprints,
-    written in one transaction into the store's own schema."""
+    FILLER_FP_VIDEOS x FILLER_FP_FRAMES (= 2^20) random fingerprints of
+    ``words`` words, written in one transaction into the store's own
+    schema."""
     import numpy as np
 
     from tvidz_tpu_torch.corpus.store import Store
@@ -914,9 +1113,9 @@ def prefill_store(db_path: str) -> int:
             rows)
         con.executemany(
             "INSERT INTO video_fingerprints (video_id, words, fingerprints) "
-            "VALUES (?, 2, ?)",
-            [(i + 1, rng.integers(0, 2 ** 32, size=(FILLER_FP_FRAMES, 2),
-                                  dtype=np.uint32).tobytes())
+            "VALUES (?, ?, ?)",
+            [(i + 1, words, rng.integers(0, 2 ** 32, size=(FILLER_FP_FRAMES, words),
+                                         dtype=np.uint32).tobytes())
              for i in range(FILLER_FP_VIDEOS)])
     con.close()
     return FILLER_FP_VIDEOS * FILLER_FP_FRAMES
@@ -1022,15 +1221,27 @@ def drive_main_path(work: str):
     alpha_id = found["best_alignments"][0]["video_id"]
     query = store.get_fingerprints(alpha_id)[:128]
     scans = {}
-    for name, call in (
-            ("search_fingerprints", lambda: dict(corpus.search_fingerprints(query))),
-            ("nearest_video_counts", lambda: corpus.nearest_video_counts(query))):
+    # A 40,000-frame query (a 22-minute video at 30 fps): alpha's 300
+    # fingerprints at its end, random ones before; past one launch.
+    import numpy as np
+
+    alpha_fps = store.get_fingerprints(alpha_id)
+    long_query = np.concatenate([np.random.default_rng(SEED + 12).integers(
+        0, 2 ** 32, size=(40_000 - alpha_fps.shape[0], 2), dtype=np.uint32),
+        alpha_fps])
+    for name, call, want in (
+            ("search_fingerprints", lambda: dict(corpus.search_fingerprints(query)), 128),
+            ("nearest_video_counts", lambda: corpus.nearest_video_counts(query), 128),
+            ("nearest_video_counts_40000",
+             lambda: corpus.nearest_video_counts(long_query), 300)):
         backend.reset_launch_counts()
         got = call()
         scans[name] = {"alpha": got.get(alpha_id),
                        "launches": read_launches({hamming.K4.name}, name)}
-        check(got.get(alpha_id, 0) >= 128 if name == "search_fingerprints"
-              else got.get(alpha_id) == 128, f"{name} on the smoke corpus: {got}")
+        check(got.get(alpha_id, 0) >= want if name == "search_fingerprints"
+              else got.get(alpha_id) == want, f"{name} on the smoke corpus: {got}")
+    check(scans["nearest_video_counts_40000"]["launches"][hamming.K4.name] == 3,
+          f"40,000 queries: {scans['nearest_video_counts_40000']['launches']}")
     phase("corpus_scans", alpha_video_id=alpha_id, **scans)
     return {"cli": launches, **{k: v["launches"] for k, v in scans.items()}}, url
 
@@ -1153,6 +1364,28 @@ def drive_service(work: str, url: str, smi: str) -> dict:
               and best["match_count"] == 400
               and found["fingerprint_matches"][0]["filename"] == "omega.y4m",
               f"/search/video: {found['best_alignments']}")
+        # A 16,500-frame video at the scene geometry (no rescale), past one
+        # launch of the corpus scan: two chunks of queries.
+        long_path = os.path.join(work, "svc", "long.y4m")
+        _, long_cuts = write_synthetic_y4m(
+            long_path, num_frames=LONG_VIDEO_FRAMES, height=cfg.pipeline.scene_height,
+            width=cfg.pipeline.scene_width, cut_frames=(1000, 9000, 16_000),
+            seed=13)
+        with open(long_path, "rb") as f:
+            body = f.read()
+        os.remove(long_path)
+        k4_before = hamming.K4.launches
+        t0 = time.perf_counter()
+        long_found = client.post("/search/video?filename=long.y4m&top_k=3",
+                                 data=body).get_json()
+        long_video_s = time.perf_counter() - t0
+        del body
+        check(long_found.get("frames") == LONG_VIDEO_FRAMES
+              and long_found["scene_cuts"] == long_cuts
+              and hamming.K4.launches - k4_before == 2,
+              f"/search/video of {LONG_VIDEO_FRAMES} frames: "
+              f"{ {k: v for k, v in long_found.items() if k != 'scene_cuts'} }, "
+              f"{hamming.K4.launches - k4_before} K4 launches")
         metrics = client.get("/metrics").get_json()
     finally:
         app.stop()
@@ -1172,8 +1405,127 @@ def drive_service(work: str, url: str, smi: str) -> dict:
         search_fragment_s=fragment_s,
         upload_k1_launches=upload_k1, dispatcher_passes=passes,
         search_video_s=video_s, dispatcher=disp,
+        long_video={"frames": LONG_VIDEO_FRAMES, "seconds": long_video_s,
+                    "fingerprint_matches": long_found["fingerprint_matches"],
+                    "k4_launches": 2},
         stage_timings=metrics["stage_timings"],
         sync_bytes=metrics["corpus_footprint"]["sync_bytes"])
+    return launches
+
+
+def drive_phash256(work: str, smi: str) -> dict:
+    """The port under ``TVIDZ_HASH_ALGO=phash256`` (8-word fingerprints):
+    ``ingest`` / ``analyze`` / ``search`` through the CLI against a
+    2^20-fingerprint sqlite corpus of 8 words (32 MB on the card), then
+    ``/search/fragment`` and ``/search/video`` through the in-process
+    service on that store. The renamed copy must name the original and a
+    fresh video none; every verdict goes through K4 and every fragment
+    search through K3 at W = 8, and no block through K1 (the family's
+    plain-torch composition fingerprints). Launch counts zeroed before,
+    read after."""
+    from tvidz_tpu_torch import backend, cli
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.corpus.store import Store
+    from tvidz_tpu_torch.decode import write_synthetic_y4m
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+    from tvidz_tpu_torch.ops import align, fused, hamming
+    from tvidz_tpu_torch.service import fakes
+    from tvidz_tpu_torch.service.app import create_app
+
+    root = os.path.join(work, "phash256")
+
+    def video(sub, name, seed, n, cuts):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        path = os.path.join(root, sub, name)
+        return path, write_synthetic_y4m(path, num_frames=n, height=180, width=320,
+                                         cut_frames=cuts, seed=seed)[1]
+
+    # Early exit off, so that the renamed copy's whole sequence is stored
+    # for the fragment search to take its span from.
+    os.environ.update(TVIDZ_HASH_ALGO="phash256", TVIDZ_EARLY_EXIT="0")
+    app = None
+    try:
+        cfg = Config()
+        model = FingerprintModel(cfg, device="cuda")
+        check(cfg.hash.words == PHASH256_WORDS and not model.k1,
+              f"phash256: {cfg.hash.words} words, K1 {model.k1}")
+        composition = ("ops/fused.fingerprint_family_block: "
+                       "ops/scene.scene_scores_block + ops/hashes.phash256_batched "
+                       "(plain torch; K1 computes the 64-bit pHash only)")
+        sigma, _ = video("orig", "sigma.y4m", 21, 300, (60, 150, 240))
+        video("orig", "tau.y4m", 22, 260, (50, 170))
+        renamed = os.path.join(root, "copy", "renamed.y4m")
+        os.makedirs(os.path.dirname(renamed))
+        shutil.copy(sigma, renamed)
+        upsilon, upsilon_cuts = video("fresh", "upsilon.y4m", 23, 280, (70, 200))
+        db = os.path.join(root, "corpus.db")
+        t0 = time.perf_counter()
+        n_fp = prefill_store(db, words=PHASH256_WORDS)
+        prefill_s = time.perf_counter() - t0
+        url = f"sqlite:///{db}"
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(cli, ["ingest", os.path.join(root, "orig"), "--db", url])
+        check(rc == 0 and out[-1]["ingested"] == 2
+              and out[-1]["corpus_fingerprints"] == n_fp + 560,
+              f"phash256 ingest: {out}")
+        rc, (res,) = run_cli(cli, ["analyze", renamed, "--db", url, "--compact"])
+        check(rc == 0 and res["duplicates"] == ["sigma.y4m"],
+              f"phash256 renamed copy verdict: {res}")
+        rc, (fresh,) = run_cli(cli, ["analyze", upsilon, "--db", url, "--compact"])
+        check(rc == 0 and fresh["duplicates"] == []
+              and fresh["scene_cuts"] == upsilon_cuts, f"phash256 fresh video: {fresh}")
+        rc, (found,) = run_cli(cli, ["search", renamed, "--db", url])
+        top = found["best_alignments"][0]
+        check(rc == 0 and top["filename"] == "sigma.y4m" and top["offset_frames"] == 0
+              and top["match_count"] == 300
+              and found["fingerprint_matches"][0]["filename"] == "sigma.y4m",
+              f"phash256 search of the renamed copy: {found['best_alignments']}")
+        cli_s = time.perf_counter() - t0
+
+        app = create_app(config=cfg, store=Store(url),
+                         s3=fakes.FakeS3(os.path.join(root, "s3")), sqs=None,
+                         device="cuda")
+        deadline = time.time() + 300
+        while not app.device_ready and time.time() < deadline:
+            time.sleep(0.05)
+        check(app.device_ready and app.corpus.words == PHASH256_WORDS,
+              "phash256 service did not get ready")
+        client = app.wsgi.test_client()
+        span = {"filename": "renamed.y4m", "start_frame": 50, "num_frames": 200}
+        t0 = time.perf_counter()
+        frag = client.post("/search/fragment", json_body=span).get_json()
+        fragment_s = time.perf_counter() - t0
+        check(frag["matches"][0]["filename"] == "sigma.y4m"
+              and frag["matches"][0]["offset_frames"] == 50
+              and frag["matches"][0]["match_count"] == 200,
+              f"phash256 /search/fragment: {frag}")
+        with open(sigma, "rb") as f:
+            body = f.read()
+        t0 = time.perf_counter()
+        vid = client.post("/search/video?filename=renamed.y4m&top_k=3",
+                          data=body).get_json()
+        video_s = time.perf_counter() - t0
+        best = vid["best_alignments"][0]
+        check(best["filename"] == "sigma.y4m" and best["offset_frames"] == 0
+              and best["match_count"] == 300
+              and vid["fingerprint_matches"][0]["filename"] == "sigma.y4m",
+              f"phash256 /search/video: {vid['best_alignments']}")
+    finally:
+        if app is not None:
+            app.stop()
+        for k in ("TVIDZ_HASH_ALGO", "TVIDZ_EARLY_EXIT"):
+            del os.environ[k]
+    launches = read_launches({align.K3.name, hamming.K4.name}, "phash256 path")
+    check(launches[fused.K1.name] == 0,
+          f"phash256: {launches[fused.K1.name]} K1 launches (the family's "
+          "composition launches none)")
+    phase("phash256_path", card=smi, words=PHASH256_WORDS, composition=composition,
+          launches=launches, corpus_fingerprints=n_fp + 560, prefill_s=prefill_s,
+          renamed_copy=res["duplicates"], fresh_duplicates=fresh["duplicates"],
+          search_top_alignment=top, cli_s=cli_s,
+          fragment_top=frag["matches"][0], search_fragment_s=fragment_s,
+          video_top=best, search_video_s=video_s)
     return launches
 
 
@@ -1323,7 +1675,52 @@ def time_kernels(dev) -> dict:
                 lambda: align.fragment_search_batch(dq, ql, dc, ln, FRAG_THR), 10)}
     k1_items = device_ms_by_kernel(k1, 20)
     check(len(k1_items) == 1, f"K1: device items per call {sorted(k1_items)}, not one")
-    return {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
+    # K1's second form at T=128, and K4 and K3 at W = 8 (phash256).
+    k1_geo = {}
+    for h, w in K1_TIMED_GEOMETRIES:
+        xg = torch.randint(0, 256, (FRAMES, h, w), dtype=torch.uint8,
+                           device=dev, generator=gen)
+        lg, rg = phash.hash_operators(h, w, dev)
+        cg = fused.initial_fingerprint_carry(h, w, dev)
+        fn = lambda: fused.fingerprint_block(xg, cg, lg, rg)  # noqa: E731
+        fn_plain = lambda: fused.fingerprint_block_plain(xg, cg, lg, rg)  # noqa: E731
+        ms, plain_ms = interleaved_ms(fn, fn_plain, 5)
+        b = k1_bound(FRAMES, h, w)
+        k1_geo[f"{h}x{w}"] = {"frames": FRAMES, "form": fused.k1_form(h, w),
+                              "grid": fused.fingerprint_grid(FRAMES, h, w),
+                              "ms": ms, "plain_ms": plain_ms,
+                              "device_ms": device_ms(fn, 10),
+                              "bound_ms": b[0], "bound_by": b[1]}
+        del xg
+    q8, corpus8 = scan_inputs(dev, {}, PHASH256_WORDS)
+    k4_w8 = {}
+    for mode in ("query_nearest", "frame_min"):
+        fn = lambda mode=mode: hamming.corpus_scan_tc(q8, corpus8, mode)  # noqa: E731
+        fn_plain = lambda mode=mode: hamming.corpus_scan_pm1_plain(  # noqa: E731
+            q8, corpus8, mode)
+        ms, plain_ms = interleaved_ms(fn, fn_plain, 3)
+        b = scan_bound(SCAN_M, SCAN_N, PHASH256_WORDS)
+        k4_w8[mode] = {"ms": ms, "plain_ms": plain_ms, "device_ms": device_ms(fn, 20),
+                       "bound_ms": b[0], "bound_by": b[1],
+                       "grid": hamming.corpus_scan_tc_grid(mode, SCAN_N, dev,
+                                                           PHASH256_WORDS)}
+    del corpus8
+    (qs8, ql8, c8, ln8), _ = fragment_inputs(dev, FRAG_A, SEED + 3, PHASH256_WORDS)
+    fn = lambda: align.fragment_search_batch(qs8, ql8, c8, ln8, FRAG_THR)  # noqa: E731
+    fn_plain = lambda: align.fragment_search_batch_plain(  # noqa: E731
+        qs8, ql8, c8, ln8, FRAG_THR)
+    ms, plain_ms = interleaved_ms(fn, fn_plain, 2)
+    pairs8 = int(ql8.to(torch.int64).sum() * ln8.to(torch.int64).sum())
+    bytes8 = sum(t.numel() * t.element_size() for t in (qs8, ql8, c8, ln8)) \
+        + 2 * 4 * FRAG_A[0] * FRAG_A[2]
+    b = bound(bytes8, 2 * 32 * PHASH256_WORDS * pairs8, INT8_TC_OPS_PER_S)
+    dc8, dq8 = dense_inputs(c8, qs8)
+    k3_w8 = {"shape": list(FRAG_A), "ms": ms, "plain_ms": plain_ms,
+             "device_ms": device_ms(fn, 10), "bound_ms": b[0], "bound_by": b[1],
+             "dense_device_ms": device_ms(
+                 lambda: align.fragment_search_batch(dq8, ql8, dc8, ln8, FRAG_THR), 5)}
+    return {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_geometries": k1_geo,
+            "k4_w8": k4_w8, "k3_w8": k3_w8,
             "k1_device_ms": sum(k1_items.values()),
             "k1_device_items": sorted(k1_items),
             "k1_grid": fused.fingerprint_grid(FRAMES, HEIGHT, WIDTH),
@@ -1385,10 +1782,14 @@ def main(argv=None) -> int:
           kernels=[k.repo_source for k in backend.KERNELS], ptxas=ptxas)
 
     k1_err = check_fingerprint_block(dev)
+    k1_err = max(k1_err, check_k1_geometries(dev)["score_max_abs_err"])
     k2_err = check_corpus_scan(dev)
     k3_err = check_fragment_search(dev)
+    k3_err = max(k3_err, check_k3_wide(dev))
 
     k4_err = check_scan_modes(dev)
+    wide_err = check_wide_scans(dev)
+    k2_err, k4_err = max(k2_err, wide_err), max(k4_err, wide_err)
     times = time_kernels(dev)
 
     work = tempfile.mkdtemp(prefix="tvidz_chip_smoke_")
@@ -1398,6 +1799,7 @@ def main(argv=None) -> int:
         path_launches, url = drive_main_path(work)
         path_launches["service"] = drive_service(work, url, smi)
         path_launches["bench"] = drive_bench(smi)
+        path_launches["phash256"] = drive_phash256(work, smi)
 
         stream_bound = k1_bound(K1_VALUE_FRAMES)
         times["k1_stream"].update(

@@ -16,7 +16,7 @@ import torch
 
 from tvidz_tpu_torch import backend
 from tvidz_tpu_torch.decode import synthetic
-from tvidz_tpu_torch.ops import align, fused, hamming, phash
+from tvidz_tpu_torch.ops import align, fused, golden, hamming, phash
 
 pytestmark = pytest.mark.cuda
 
@@ -152,12 +152,13 @@ def test_kernel_other_geometries_match_plain(dev, h, w, t):
 
 def test_kernel_refuses_what_it_cannot_take(dev):
     """A CUDA tensor the kernel cannot take raises; nothing falls back to
-    the plain version."""
-    left, right = phash.hash_operators(90, 150, dev)
-    carry = fused.initial_fingerprint_carry(90, 150, dev)
-    x = torch.zeros((8, 90, 150), dtype=torch.uint8, device=dev)
+    the plain version. Since K1 takes any scene geometry, that is a width
+    neither form holds, or a misaligned block at the first form's."""
+    left, right = phash.hash_operators(2, 8000, dev)
+    carry = fused.initial_fingerprint_carry(2, 8000, dev)
+    x = torch.zeros((8, 2, 8000), dtype=torch.uint8, device=dev)
     before = fused.K1.launches
-    with pytest.raises(ValueError, match="W <= 160"):
+    with pytest.raises(ValueError, match="fingerprint-block kernel"):
         fused.fingerprint_block(x, carry, left, right)
     left, right = phash.hash_operators(90, 160, dev)
     carry = fused.initial_fingerprint_carry(90, 160, dev)
@@ -252,33 +253,34 @@ def test_fragment_search_kernel_dense_bucket(dev, thr, runs):
         assert int(got[1][0, 0]) == 320 and int(got[1][0, 4]) == 0
 
 
-def _range_edges(dev, n):
+def _range_edges(dev, n, words=2):
     """Rows where the ranges of K4's CTAs 1 and grid / 2 begin, for the
-    grid each argmin mode launches on this card: CTA c walks the 256-row
-    tiles [tiles c / grid, tiles (c + 1) / grid) in ascending order."""
+    grid each argmin mode launches on this card at ``words``: CTA c walks
+    the 256-row tiles [tiles c / grid, tiles (c + 1) / grid) in ascending
+    order."""
     tiles = -(-n // 256)
-    grids = {hamming.corpus_scan_tc_grid(mode, n, dev)
+    grids = {hamming.corpus_scan_tc_grid(mode, n, dev, words)
              for mode in ("full", "full_cols", "twophase", "query_nearest")}
     assert all(1 <= g <= tiles for g in grids)
     return sorted({256 * (tiles * c // g) for g in grids if g > 1
                    for c in (1, g // 2)})
 
 
-def _scan_case(dev, m, n, seed=12):
+def _scan_case(dev, m, n, seed=12, words=2):
     """(q, corpus, expected q_arg of the planted rows) with ties: a lower
     copy in a far tile, in the adjacent tile, in another warp of its tile;
     a copy in the same row of the next tile (the same thread, later in its
     range); copies on both sides of each CTA range edge; sentinel rows and
     a distance-4 tie."""
     rng = np.random.default_rng(seed)
-    corpus = rng.integers(0, 2 ** 32, size=(n, 2), dtype=np.uint32)
-    q = rng.integers(0, 2 ** 32, size=(m, 2), dtype=np.uint32)
+    corpus = rng.integers(0, 2 ** 32, size=(n, words), dtype=np.uint32)
+    q = rng.integers(0, 2 ** 32, size=(m, words), dtype=np.uint32)
     corpus[-300:] = 0xFFFFFFFF
     q[1] = 0xFFFFFFFF
     plants = {0: [256 * 200 + 3, 256 * 2 + 250], 2: [256 * 40, 256 * 39 + 255],
               3: [256 * 7 + 130, 256 * 7 + 2], 4: [9000, 4001],
               5: [256 * 11 + 7, 256 * 10 + 7]}
-    for i, edge in enumerate(_range_edges(dev, n)):
+    for i, edge in enumerate(_range_edges(dev, n, words)):
         plants[6 + i] = [edge, edge - 1]
     want = {}
     for k, rows in plants.items():
@@ -335,3 +337,154 @@ def test_k2_frame_min_switch_matches_plain(dev):
     got = hamming.corpus_frame_min_xor(q, corpus)
     assert hamming.K2.launches == before + 1
     assert torch.equal(got, hamming.corpus_min_distance_plain(q, corpus)[0])
+
+
+# -- any scene geometry (K1's second form), any word width, any query count --
+
+ODD_GEOMETRIES = [(91, 163), (33, 47), (720, 1280), (8, 8), (180, 320),
+                  (90, 162), (90, 160)]
+
+
+@pytest.mark.parametrize("h,w", ODD_GEOMETRIES)
+def test_kernel_any_geometry_matches_plain(dev, h, w):
+    """K1 at the reference's edge geometries and the env var's reach:
+    chained blocks within the tolerances of the plain version (carried
+    mafd within one ulp), the whole stream bit-equal to the chained
+    launches, hashes within 2 bits of golden.phash."""
+    rng = np.random.default_rng(h + w)
+    t = 128 if h * w < 500_000 else 32
+    luma = rng.integers(0, 256, size=(2 * t + 7, h, w), dtype=np.uint8)
+    x = torch.from_numpy(luma).to(dev)
+    left, right = phash.hash_operators(h, w, dev)
+    ck = fused.initial_fingerprint_carry(h, w, dev)
+    cp = fused.initial_fingerprint_carry(h, w, dev)
+    chained = []
+    for s in range(0, x.shape[0], t):
+        sk, fk, ck = fused.fingerprint_block(x[s:s + t], ck, left, right)
+        sp, fp, cp = fused.fingerprint_block_plain(x[s:s + t], cp, left, right)
+        torch.cuda.synchronize()
+        chained.append((sk, fk))
+        assert (sk - sp).abs().max().item() <= 1e-6
+        assert _bits(fk, fp).max() <= 2
+        assert torch.equal(ck.scene.prev_frame, cp.scene.prev_frame)
+        np.testing.assert_allclose(ck.scene.prev_mafd.cpu().numpy(),
+                                   cp.scene.prev_mafd.cpu().numpy(),
+                                   rtol=2 ** -23, atol=0)
+    ss, fs = fused.fingerprint_stream(x)
+    assert torch.equal(ss, torch.cat([c[0] for c in chained]))
+    assert torch.equal(fs, torch.cat([c[1] for c in chained]))
+    want = np.stack([golden.phash(f) for f in luma[:4]])
+    assert _bits(fs[:4], torch.from_numpy(want.view(np.int32))).max() <= 2
+
+
+def test_odd_geometry_batch_is_one_launch_equal_to_lone_launches(dev):
+    """The dispatcher's pass at 91x163 (the second form): one launch, each
+    stream bit-equal to a lone launch, misaligned blocks taken."""
+    rng = np.random.default_rng(5)
+    h, w = 91, 163
+    left, right = phash.hash_operators(h, w, dev)
+    flat = torch.from_numpy(rng.integers(0, 256, size=(4 * 64 * h * w + 3,),
+                                         dtype=np.uint8)).to(dev)
+    blocks = [flat[3 + k * 64 * h * w:3 + (k + 1) * 64 * h * w].view(64, h, w)
+              for k in range(4)]
+    carries = [fused.initial_fingerprint_carry(h, w, dev) for _ in range(4)]
+    _, _, mid = fused.fingerprint_block(blocks[0], carries[0], left, right)
+    carries[2] = mid
+    valid = [64, 1, 33, 64]
+    before = fused.K1.launches
+    sb, fb, cb = fused.fingerprint_blocks_batched(blocks, carries, valid, left, right)
+    assert fused.K1.launches == before + 1
+    for j in range(4):
+        s1, f1, c1 = fused.fingerprint_block(blocks[j], carries[j], left, right,
+                                             valid_t=valid[j])
+        assert torch.equal(sb[j], s1) and torch.equal(fb[j], f1)
+        assert all(torch.equal(a, b) for a, b in zip(cb[j].scene, c1.scene))
+
+
+@pytest.mark.parametrize("words", [1, 3, 8])
+@pytest.mark.parametrize("m,n", [(128, 70_001), (37, 3000)])
+def test_scans_any_width_match_plain(dev, words, m, n):
+    """Every K4 mode and K2's two entry points at W words == the plain XOR
+    scan, ties at the range edges of the grid K4 reports for W included."""
+    q, corpus, planted = _scan_case(dev, m, n, words=words)
+    want = hamming.corpus_min_distance_plain(q, corpus)
+    for mode in hamming.MODES:
+        got = hamming.corpus_scan_tc(q, corpus, mode)
+        assert all(g is None or torch.equal(g, w) for g, w in zip(got, want)), mode
+        if got[2] is not None:
+            assert {k: int(got[2][k]) for k in planted} == planted
+    assert all(torch.equal(g, w) for g, w in zip(
+        hamming.corpus_min_distance(q, corpus), want))
+    assert torch.equal(hamming.corpus_frame_min_xor(q, corpus), want[0])
+
+
+@pytest.mark.parametrize("words", [2, 8])
+@pytest.mark.parametrize("m", [16_385, 40_000])
+def test_scans_past_one_launch_match_plain(dev, words, m):
+    """More queries than a launch takes: chunks of 16,384, one launch each,
+    combined exactly."""
+    q, corpus, _ = _scan_case(dev, m, 4096, words=words)
+    want = hamming.corpus_min_distance_plain(q, corpus)
+    chunks = -(-m // 16_384)
+    before = hamming.K4.launches, hamming.K2.launches
+    for mode in ("frame_min", "query_nearest", "full"):
+        got = hamming.corpus_scan_tc(q, corpus, mode)
+        assert all(g is None or torch.equal(g, w) for g, w in zip(got, want)), mode
+    got = hamming.corpus_min_distance(q, corpus)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert hamming.K4.launches == before[0] + 3 * chunks
+    assert hamming.K2.launches == before[1] + chunks
+
+
+@pytest.mark.parametrize("thr", [0, 40, 100])
+def test_fragment_search_kernel_w8_matches_plain(dev, thr):
+    rng = np.random.default_rng(thr)
+    v, tc, tq_pad, words = 37, 1024, 320, 8
+    corpus = rng.integers(0, 2 ** 32, size=(v, tc, words), dtype=np.uint32)
+    lens = np.full(v, tc, np.int32)
+    lens[3], lens[4] = 100, 0
+    corpus[5] = np.resize(corpus[5, :50], (tc, words))
+    qs = rng.integers(0, 2 ** 32, size=(3, tq_pad, words), dtype=np.uint32)
+    qlens = np.asarray([320, 200, 77], np.int32)
+    qs[0, :300] = corpus[9, 500:800]
+    qs[1, :200] = corpus[5, 20:220]
+    qs[0, ::4, 6] ^= np.uint32(0b1011)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)  # noqa: E731
+                                   if a.dtype == np.uint32 else a).to(dev)
+    args = [t(a) for a in (qs, qlens, corpus, lens)]
+    ko, ks = align.fragment_search_batch(*args, thr)
+    po, ps = align.fragment_search_batch_plain(*args, thr)
+    assert torch.equal(ko, po) and torch.equal(ks, ps)
+    dense = t(np.broadcast_to(corpus[0, 0], corpus.shape).copy())
+    dq = t(np.broadcast_to(corpus[0, 0], qs.shape).copy())
+    got = align.fragment_search_batch(dq, args[1], dense, args[3], thr)
+    want = align.fragment_search_batch_plain(dq, args[1], dense, args[3], thr)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_phash256_analyze_on_the_card(dev, monkeypatch):
+    """A model under phash256 on the card: the family's composition (no K1
+    launch), the same cuts and fingerprints within 8 bits of the CPU's."""
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+
+    monkeypatch.setenv("TVIDZ_HASH_ALGO", "phash256")
+    luma, _ = synthetic.synthetic_video(300, 90, 160, cut_frames=(40, 200), seed=6)
+    pts = np.arange(300) / 25.0
+    before = fused.K1.launches
+    cuts, fps = FingerprintModel(Config(), device=dev).analyze_array(luma, pts)
+    assert fused.K1.launches == before
+    ccuts, cfps = FingerprintModel(Config(), device="cpu").analyze_array(luma, pts)
+    assert cuts == ccuts == [1.6, 8.0] and fps.shape == (300, 8)
+    assert np.unpackbits((fps ^ cfps).view(np.uint8), axis=-1).sum(-1).max() <= 8
+
+
+def test_scan_wider_after_narrower_widths(dev):
+    """Widths whose shared memory needs an opt-in, asked in turn (8, 5, 8):
+    a narrower one never lowers the limit under a wider one's launch."""
+    for words in (8, 5, 8, 37):
+        q, corpus, _ = _scan_case(dev, 130, 3000, words=words)
+        want = hamming.corpus_min_distance_plain(q, corpus)
+        for mode in ("query_nearest", "frame_min"):
+            got = hamming.corpus_scan_tc(q, corpus, mode)
+            assert all(g is None or torch.equal(g, w) for g, w in zip(got, want))

@@ -10,15 +10,17 @@ the wrong CTA, a ring slot overwritten too early) shows here without one:
   whose first one starts where its window row 0 is a multiple of 64, a
   256-row ring of unpacked corpus rows that slides by 64 rows a tile and
   is read in 64-row pieces that never wrap, the threshold as
-  dot >= 64 - 2 thr, validity checked for matched pairs only, a warp's
+  dot >= 32 W - 2 thr, validity checked for matched pairs only, a warp's
   16 x 64 block that matched whole counted once per band inside the valid
   rows and by interval ends at their edges, a per-band
-  first-index argmax and the bands combined by the maximum 64-bit key.
+  first-index argmax and the bands combined by the maximum 64-bit key; at
+  W = 2 (the 64-bit pHash) and W = 8 (phash256).
 - K4 (``csrc/corpus_scan_tc.cu``): contiguous per-CTA ranges of 256-row
   tiles walked in ascending order, query chunks of 128, the rows each
-  thread holds, rows past N masked, per thread and query a running key
-  (dot + 64) << 24 | (0xffffff - row offset in the range) kept by its
-  maximum, and the per-(CTA, query) 64-bit key combine.
+  thread holds, rows past N masked (dot -32 W), per thread and query a
+  running key (dot + 32 W) / 2 << shift | (low - row offset in the range),
+  shift = 32 - bits(32 W) and low = 2^shift - 1 (25 at W = 2, 23 at W = 8),
+  kept by its maximum, and the per-(CTA, query) 64-bit key combine.
 
 - K1 (``csrc/fingerprint_block.cu``): S segments of T frames cut into
   contiguous per-CTA ranges; a range starting inside a segment also
@@ -27,6 +29,11 @@ the wrong CTA, a ring slot overwritten too early) shows here without one:
   row, lanes holding one 4-byte word and one byte of columns with their R
   rows permuted, a select-free reduce-scatter shuffle tree, L folded in row
   by row and the warps' sums added in warp order; the carry at valid_t - 1.
+  Its second form, for every geometry the first cannot hold (any H, W and
+  alignment: 91x163, 180x320, 720x1280), keeps the plan, scores and
+  carries, and projects as a warp per group of 4 rows, lane l summing
+  columns l, l + 32, ..., a reduce-scatter tree with selects, L folded in
+  row by row, the warps' sums in warp order.
 
 Tolerance: exact (integer counts and indices; K1's scores and carries),
 and K1's hashes within 2 bits of the plain version's (float32 sums in
@@ -44,7 +51,7 @@ _ZERO_KEY = 0x7FFFFFFF                  # score 0 at d = 0
 
 
 def _pm1(packed):
-    """(..., 2) uint32 -> (..., 64) int64 ±1, MSB-first per word."""
+    """(..., W) uint32 -> (..., 32 W) int64 ±1, MSB-first per word."""
     bits = np.unpackbits(packed.astype(">u4").view(np.uint8), axis=-1)
     return bits.astype(np.int64) * 2 - 1
 
@@ -62,10 +69,11 @@ def k3_model(qs, q_lens, corpus, lens, thr, band=128, tile=64, ring=256,
     """(Q, V) offsets and scores as K3 computes them; ``stats`` counts the
     warp blocks counted pair by pair and those that matched whole."""
     stats = {"all_matched": 0, "pairwise": 0} if stats is None else stats
-    nq, tq_pad, _ = qs.shape
+    nq, tq_pad, words = qs.shape
     nv, tc, _ = corpus.shape
+    bits = 32 * words
     win = -(-(tile + band - 1) // 64) * 64          # whole 64-row pieces
-    thr = min(max(thr, -1), 64)
+    thr = min(max(thr, -1), bits)
     q_pm1, c_pm1 = _pm1(qs), _pm1(corpus)
     nd = tq_pad + tc - 1
     keys = np.full((nq, nv), _ZERO_KEY, dtype=object)
@@ -82,7 +90,7 @@ def k3_model(qs, q_lens, corpus, lens, thr, band=128, tile=64, ring=256,
                 # The ring holds (row j mod ring); a 64-row window piece must
                 # not wrap, so the first tile starts where t0 + o0 is a
                 # multiple of 64 (earlier rows are masked).
-                slots = np.zeros((ring, 64), np.int64)
+                slots = np.zeros((ring, bits), np.int64)
                 t_first = t_begin - (t_begin + o0) % 64
                 have = None
                 for t0 in range(t_first, t_end, tile):
@@ -91,13 +99,13 @@ def k3_model(qs, q_lens, corpus, lens, thr, band=128, tile=64, ring=256,
                         (j0 + p) % ring + 64 <= ring for p in range(0, win, 64))
                     t = t0 + np.arange(tile)
                     ok_t = (t >= 0) & (t < q_len)
-                    a = np.zeros((tile, 64), np.int64)
+                    a = np.zeros((tile, bits), np.int64)
                     a[ok_t] = q_pm1[q, t[ok_t]]
                     for j in range(j0 if have is None else max(j0, have), j0 + win):
                         slots[j % ring] = c_pm1[v, j] if 0 <= j < c_len else 0
                     have = j0 + win
                     w = slots[(j0 + np.arange(win)) % ring]
-                    matched = a @ w.T >= 64 - 2 * thr
+                    matched = a @ w.T >= bits - 2 * thr
                     dd, tt, j = jj - tl, t0 + tl, j0 + jj
                     ok = (matched & (dd >= 0) & (dd < band) & (tt >= 0)
                           & (tt < q_len) & (j >= 0) & (j < c_len))
@@ -140,20 +148,20 @@ def k3_model(qs, q_lens, corpus, lens, thr, band=128, tile=64, ring=256,
     return offs, scores
 
 
-def _k3_case(name, seed=3):
+def _k3_case(name, seed=3, words=2):
     """(qs, q_lens, corpus, lens, thr) of one named case."""
     rng = np.random.default_rng(seed)
     nq, tq_pad, nv, tc, thr = 2, 150, 5, 260, 10
     if name == "not_band_multiple":
         tq_pad, tc = 97, 171               # 97 + 171 - 1 = 267, not k * 128
-    corpus = rng.integers(0, 2 ** 32, size=(nv, tc, 2), dtype=np.uint32)
-    qs = rng.integers(0, 2 ** 32, size=(nq, tq_pad, 2), dtype=np.uint32)
+    corpus = rng.integers(0, 2 ** 32, size=(nv, tc, words), dtype=np.uint32)
+    qs = rng.integers(0, 2 ** 32, size=(nq, tq_pad, words), dtype=np.uint32)
     lens = np.full(nv, tc, np.int32)
     q_lens = np.full(nq, tq_pad, np.int32)
     if name == "periodic":
         # Period 20: query 0 ties at every 20th offset, across bands.
-        corpus[1] = np.resize(corpus[1, :20], (tc, 2))
-        qs[0] = np.resize(corpus[1, 3:23], (tq_pad, 2))
+        corpus[1] = np.resize(corpus[1, :20], (tc, words))
+        qs[0] = np.resize(corpus[1, 3:23], (tq_pad, words))
         q_lens[0] = 40                     # fits at offsets 3 .. 203
     elif name == "short_rows":
         q_lens[:] = (tq_pad - 41, 9)
@@ -205,6 +213,20 @@ def test_k3_decomposition_equals_plain(name):
         assert np.array_equal(offs[q], o.numpy()) and np.array_equal(scores[q], s.numpy())
 
 
+@pytest.mark.parametrize("name,thr", [("periodic", 10), ("short_rows", 10),
+                                      ("thr40", 40), ("thr40", 100),
+                                      ("identical", 10), ("static_runs", 10)])
+def test_k3_decomposition_equals_plain_w8(name, thr):
+    """The same decomposition at W = 8 (phash256): 256-term dots, the
+    threshold at 256 - 2 thr."""
+    qs, q_lens, corpus, lens, _ = _k3_case(name, words=8)
+    offs, scores = k3_model(qs, q_lens, corpus, lens, thr)
+    want_o, want_s = align.fragment_search_batch_plain(
+        _t(qs), _t(q_lens), _t(corpus), _t(lens), thr)
+    assert np.array_equal(offs, want_o.numpy())
+    assert np.array_equal(scores, want_s.numpy())
+
+
 @pytest.mark.parametrize("band", [32, 64])
 def test_k3_decomposition_narrow_bands(band):
     """Narrower bands put more band edges (and more tied maxima across
@@ -247,13 +269,21 @@ def test_k3_periodic_case_ties_across_bands():
 # -- K4 -----------------------------------------------------------------------
 
 
+def _key_form(words):
+    """K4's KeyForm: (shift, low) of the running key at W words."""
+    shift = 32 - (32 * words).bit_length()
+    return shift, (1 << shift) - 1
+
+
 def k4_model(q, corpus, grid, tile=256, chunk=128):
     """(frame_min, q_min, q_arg) as K4 computes them on ``grid`` CTAs."""
     m, n = q.shape[0], corpus.shape[0]
+    bits = 32 * q.shape[1]
+    shift, low = _key_form(q.shape[1])
     q_pm1, c_pm1 = _pm1(q), _pm1(corpus)
     tiles = -(-n // tile)
     ctas = min(tiles, grid)
-    assert -(-tiles // ctas) * tile <= 0xFFFFFF      # a row offset in 24 bits
+    assert -(-tiles // ctas) * tile < low            # a row offset below low
     # Row r of a tile belongs to thread (warp, g) = ((r % 64) // 16, r % 8):
     # per 64-row wgmma a thread holds rows 16 warp + g and 16 warp + g + 8.
     r = np.arange(tile)
@@ -265,26 +295,26 @@ def k4_model(q, corpus, grid, tile=256, chunk=128):
         range_base = lo * tile
         for q0 in range(0, m, chunk):
             qc = q_pm1[q0:q0 + chunk]
-            # Running key per (query, thread): (dot + 64) << 24 |
-            # (0xffffff - row offset in the range); 0 before any row.
+            # Running key per (query, thread); 0 before any row.
             best = np.zeros((qc.shape[0], 32), np.int64)
             for tl in range(lo, hi):                    # ascending
                 rows = tl * tile + r
                 valid = rows < n
-                block = np.zeros((tile, 64), np.int64)
+                block = np.zeros((tile, bits), np.int64)
                 block[valid] = c_pm1[rows[valid]]
-                dots = np.where(valid, qc @ block.T, -64)
-                fm = (64 - dots.max(axis=0)[valid]) >> 1
+                dots = np.where(valid, qc @ block.T, -bits)
+                fm = (bits - dots.max(axis=0)[valid]) >> 1
                 frame_min[rows[valid]] = fm if q0 == 0 else np.minimum(
                     frame_min[rows[valid]], fm)
-                key = np.where(valid, ((dots + 64) << 24)
-                               | (0xFFFFFF - (rows - range_base)), 0)
+                key = np.where(valid, (((dots + bits) >> 1) << shift)
+                               | (low - (rows - range_base)), 0)
+                assert key.max() < 1 << 32
                 for th in range(32):
                     best[:, th] = np.maximum(best[:, th],
                                              key[:, thread == th].max(axis=1))
             for i in range(qc.shape[0]):
-                cand = [(((64 - ((int(k) >> 24) - 64)) >> 1) << 32)
-                        | (range_base + 0xFFFFFF - (int(k) & 0xFFFFFF))
+                cand = [((bits - (int(k) >> shift)) << 32)
+                        | (range_base + low - (int(k) & low))
                         for k in best[i] if k != 0]
                 keys[q0 + i] = min(keys[q0 + i], min(cand))
     q_min = np.array([k >> 32 for k in keys], np.int32)
@@ -292,7 +322,7 @@ def k4_model(q, corpus, grid, tile=256, chunk=128):
     return frame_min.astype(np.int32), q_min, q_arg
 
 
-def _k4_case(name, seed=17):
+def _k4_case(name, seed=17, words=2):
     """(q, corpus, grid, chunk) of one named case."""
     rng = np.random.default_rng(seed)
     m, n, grid, chunk = 24, 3000, 3, 128
@@ -300,8 +330,8 @@ def _k4_case(name, seed=17):
         m, chunk = 40, 16
     if name == "ragged_small":
         n, grid = 301, 5                  # two tiles, fewer than the grid
-    corpus = rng.integers(0, 2 ** 32, size=(n, 2), dtype=np.uint32)
-    q = rng.integers(0, 2 ** 32, size=(m, 2), dtype=np.uint32)
+    corpus = rng.integers(0, 2 ** 32, size=(n, words), dtype=np.uint32)
+    q = rng.integers(0, 2 ** 32, size=(m, words), dtype=np.uint32)
     tiles = -(-n // 256)
     edge = 256 * (tiles // min(tiles, grid))         # CTA 0's range ends
     if name == "ties_in_range":
@@ -327,9 +357,10 @@ K4_CASES = ("ties_in_range", "ties_across_ranges", "all_tied",
             "m_above_chunk", "ragged_small")
 
 
+@pytest.mark.parametrize("words", [2, 8])
 @pytest.mark.parametrize("name", K4_CASES)
-def test_k4_decomposition_equals_plain(name):
-    q, corpus, grid, chunk = _k4_case(name)
+def test_k4_decomposition_equals_plain(name, words):
+    q, corpus, grid, chunk = _k4_case(name, words=words)
     got = k4_model(q, corpus, grid, chunk=chunk)
     want = hamming.corpus_min_distance_plain(_t(q), _t(corpus))
     for g, w in zip(got, want):
@@ -343,10 +374,22 @@ def test_k4_decomposition_equals_plain(name):
         assert list(got[2][:3]) == [edge - 1, 100, edge - 256]
 
 
+def test_k4_key_forms():
+    """The key keeps (dot + 32 W) / 2 above the row offset at every W the
+    kernel takes, and the W = 2 key is the production one, (dot + 64) <<
+    24 above a 25-bit row field."""
+    assert _key_form(2) == (25, (1 << 25) - 1)
+    assert _key_form(8) == (23, (1 << 23) - 1)
+    for words in range(1, hamming.K4_MAX_WORDS + 1):
+        shift, low = _key_form(words)
+        assert (32 * words) << shift < 1 << 32 and low >= 1 << 19
+
+
+@pytest.mark.parametrize("words", [2, 3, 8])
 @pytest.mark.parametrize("grid", [1, 2, 7, 64])
-def test_k4_decomposition_any_grid(grid):
+def test_k4_decomposition_any_grid(grid, words):
     """The answer does not depend on how many CTAs share the corpus."""
-    q, corpus, _, chunk = _k4_case("ties_across_ranges")
+    q, corpus, _, chunk = _k4_case("ties_across_ranges", words=words)
     got = k4_model(q, corpus, grid, chunk=chunk)
     want = hamming.corpus_min_distance_plain(_t(q), _t(corpus))
     for g, w in zip(got, want):
@@ -411,10 +454,56 @@ def _project(frame, left, right):
     return low
 
 
+def _project_general(frame, left, right):
+    """(64,) float32 low coefficients of one (H, W) frame as K1's second
+    form sums them: warp w takes the groups of 4 rows w, w + 8, ...; lane
+    l sums columns l, l + 32, ... of a row by FMA from 0; the eight sums go
+    through a reduce-scatter tree (offsets 16, 8, 4, selects keeping the
+    lane's half) and two sums (2, 1), leaving lane 4m + j with tmp[h][m];
+    L is folded in row by row, the warps' sums added in warp order."""
+    h_, w_ = frame.shape
+    cols = [_LANES + 32 * k for k in range(-(-w_ // 32))]
+    b4, b3, b2 = (_LANES & 16) > 0, (_LANES & 8) > 0, (_LANES & 4) > 0
+    j, m = _LANES & 3, _LANES >> 2
+    part = np.zeros((8, 64), np.float32)
+    for warp in range(8):
+        low0 = np.zeros(32, np.float32)
+        low1 = np.zeros(32, np.float32)
+        for h0 in range(4 * warp, h_, 32):
+            for h in range(h0, min(h0 + 4, h_)):
+                a = np.zeros((32, 8), np.float32)
+                for col in cols:
+                    ok = col < w_
+                    x = np.where(ok, frame[h, np.minimum(col, w_ - 1)], 0).astype(np.float32)
+                    r = np.where(ok[:, None], right[:, np.minimum(col, w_ - 1)].T,
+                                 np.float32(0))
+                    a = np.where(ok[:, None], _fma(x[:, None], r, a), a)
+                v = np.stack([np.where(b4, a[:, q + 4], a[:, q])
+                              + np.where(b4, a[:, q], a[:, q + 4])[_LANES ^ 16]
+                              for q in range(4)], 1).astype(np.float32)
+                u = np.stack([np.where(b3, v[:, q + 2], v[:, q])
+                              + np.where(b3, v[:, q], v[:, q + 2])[_LANES ^ 8]
+                              for q in range(2)], 1).astype(np.float32)
+                d = (np.where(b2, u[:, 1], u[:, 0])
+                     + np.where(b2, u[:, 0], u[:, 1])[_LANES ^ 4]).astype(np.float32)
+                d = (d + d[_LANES ^ 2]).astype(np.float32)
+                d = (d + d[_LANES ^ 1]).astype(np.float32)
+                low0 = _fma(left[2 * j, h], d, low0)
+                low1 = _fma(left[2 * j + 1, h], d, low1)
+        part[warp, 2 * j * 8 + m] = low0
+        part[warp, (2 * j + 1) * 8 + m] = low1
+    low = part[0].copy()
+    for warp in range(1, 8):
+        low = (low + part[warp]).astype(np.float32)
+    return low
+
+
 def k1_model(lumas, carries, valid_ts, left, right, grid):
     """(scores (S, T), fps (S, T, 2) uint32, new carries) as K1 computes
-    them on ``grid`` CTAs; carries are (frame, mafd, has_prev)."""
+    them on ``grid`` CTAs, in the form ``fused.k1_form`` picks for the
+    geometry; carries are (frame, mafd, has_prev)."""
     s_, t_, h_, w_ = lumas.shape
+    project = _project if fused.k1_form(h_, w_) == 0 else _project_general
     hw = np.float32(h_ * w_)
     scores = np.full((s_, t_), np.nan, np.float32)
     lows = np.full((s_, t_, 64), np.nan, np.float32)
@@ -440,7 +529,7 @@ def k1_model(lumas, carries, valid_ts, left, right, grid):
             start = t == 0 and fresh
             m = np.float32(0) if start else np.float32(total) / hw
             if k >= lo:
-                lows[seg, t] = _project(cur, left, right)
+                lows[seg, t] = project(cur, left, right)
                 pm = carried if t == 0 else prev_m
                 sc = np.minimum(m, np.abs(m - pm)) / np.float32(100)
                 scores[seg, t] = 0 if start else np.clip(sc, 0, 1)
@@ -471,7 +560,26 @@ def _torch_carry(c):
         has_prev=torch.tensor(c[2])))
 
 
-K1_GEOMETRIES = [(12, 40), (6, 136), (8, 160)]
+K1_GEOMETRIES = [(12, 40), (6, 136), (8, 160),
+                 # the second form: W > 160, W % 4, H W % 16, any alignment
+                 (9, 47), (5, 70), (3, 200), (7, 33)]
+
+
+@pytest.mark.parametrize("h,w,form", [
+    (90, 160, 0), (8, 8, 0), (12, 40, 0), (400, 160, 0), (91, 163, 1),
+    (33, 47, 1), (720, 1280, 1), (180, 320, 1), (90, 162, 1), (2000, 160, 1),
+    (2160, 3840, 1), (1, 1, 1)])
+def test_k1_form_by_geometry(h, w, form):
+    """The production 90x160 keeps the first form; every geometry whose
+    three frames do not fit in shared memory or whose rows the lanes cannot
+    split (W > 160, W % 4, H W % 16) takes the second, up to 4K."""
+    assert fused.k1_form(h, w) == form
+
+
+@pytest.mark.parametrize("h,w", [(4321, 7681), (2, 8000)])
+def test_k1_refuses_what_neither_form_holds(h, w):
+    with pytest.raises(ValueError, match="fingerprint-block kernel"):
+        fused.k1_form(h, w)
 
 
 @pytest.mark.parametrize("s,t,grid", [(1, 128, 128), (1, 128, 100),

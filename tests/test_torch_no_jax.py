@@ -62,15 +62,17 @@ print(report(code))
 """
 
 
-def _run_cli(tmp_path, *argv):
-    """(stdout, names whose import was refused) of one port CLI call with
-    jax refused; stdout's last line is the runner's report."""
+def _run_cli(tmp_path, *argv, module="tvidz_tpu_torch", env_extra=None):
+    """(stdout, names whose import was refused) of one port CLI call (or a
+    run of another of the port's modules) with jax refused; stdout's last
+    line is the runner's report."""
     refused = tmp_path / "refused.log"
     env = dict(os.environ, TVIDZ_TMP_DIR=str(tmp_path),
-               TVIDZ_LOG_LEVEL="WARNING")
+               TVIDZ_LOG_LEVEL="WARNING", **(env_extra or {}))
+    device = ["--device", "cpu"] if module == "tvidz_tpu_torch" else []
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_RUNNER, str(ROOT), "tvidz_tpu_torch",
-         str(refused), *argv, "--device", "cpu"],
+        [sys.executable, "-c", _NO_JAX_RUNNER, str(ROOT), module,
+         str(refused), *argv, *device],
         capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc.stdout, refused.read_text().split() if refused.exists() else []
@@ -107,6 +109,39 @@ def test_cli_search_runs_with_jax_refused(tmp_path):
     assert top["filename"] == "clip.y4m" and top["offset_frames"] == 0
     assert top["match_count"] == 70
     assert result["timestamp_matches"][0]["filename"] == "clip.y4m"
+
+
+def test_cli_analyze_phash256_runs_with_jax_refused(tmp_path):
+    """``analyze`` under ``TVIDZ_HASH_ALGO=phash256``: the hash families
+    (ops/hashes over ops/resize and ops/phash) run with jax refused, and
+    store 8-word fingerprints."""
+    video = tmp_path / "clip.y4m"
+    _, planted = write_synthetic_y4m(str(video), num_frames=40, height=36,
+                                     width=64, cut_frames=(17,), seed=2)
+    out, refused = _run_cli(tmp_path, "analyze", str(video), "--db",
+                            f"sqlite:///{tmp_path / 'c.db'}", "--compact",
+                            env_extra={"TVIDZ_HASH_ALGO": "phash256"})
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    result, report = lines[0], lines[-1]
+    assert result["status"] == "done" and result["scene_cuts"] == planted
+    assert report == {"code": 0, "jax": [], "tvidz_tpu": []}
+    assert refused == []
+    from tvidz_tpu_torch.corpus.store import Store
+    store = Store(f"sqlite:///{tmp_path / 'c.db'}")
+    try:
+        assert store.get_fingerprints(1).shape == (40, 8)
+    finally:
+        store.close()
+
+
+@pytest.mark.parametrize("module", ["tvidz_tpu_torch.ops.hashes",
+                                    "tvidz_tpu_torch.ops.resize",
+                                    "tvidz_tpu_torch.ops.dct"])
+def test_hash_modules_import_without_jax(tmp_path, module):
+    out, refused = _run_cli(tmp_path, module=module)
+    assert json.loads(out.strip().splitlines()[-1]) == {
+        "code": 0, "jax": [], "tvidz_tpu": []}
+    assert refused == []
 
 
 def _free_port() -> int:

@@ -1,4 +1,5 @@
-// K2 — corpus scan: M packed 64-bit query hashes against N corpus hashes.
+// K2 — corpus scan: M packed query fingerprints against N corpus
+// fingerprints, rows of W 32-bit words (W = 2: the 64-bit pHash).
 //
 // Replaces tvidz_tpu/ops/hamming.py::_corpus_scan_kernel (the XOR+popcount
 // contract and bit-parity baseline) and ::_corpus_scan_kernel_mxu_twophase
@@ -7,9 +8,13 @@
 //   frame_min[n] = min_m popcount(q[m] ^ c[n])            (N,) int32
 //   q_min[m]     = min_n popcount(q[m] ^ c[n])            (M,) int32
 //   q_arg[m]     = the FIRST n attaining q_min[m]          (M,) int32
-// Rows are two 32-bit words read as one 64-bit value: the distance is
-// __popcll of the XOR whichever way the words are packed, as long as query
-// and corpus are packed alike. frame_min is optional (null pointer), and
+// At W = 2 rows are two 32-bit words read as one 64-bit value: the
+// distance is __popcll of the XOR whichever way the words are packed, as
+// long as query and corpus are packed alike. Any other W runs
+// corpus_scan_wide_kernel: the CTA's rows staged in shared memory word by
+// word (word w of row r at w * kRowsPerBlock + r, no bank conflicts), the
+// query words read by every thread from global memory (one broadcast), and
+// the distance summed over the W words; the argmin keys as at W = 2. frame_min is optional (null pointer), and
 // tvz_corpus_frame_min computes frame_min alone: its instance skips the
 // per-query key work (warp minimum, atomics, key unpack) entirely — the
 // search_fingerprints contract, raced against K4's frame_min mode.
@@ -32,6 +37,7 @@
 // The two-phase gate of the TPU kernel (argmin only where a query
 // improves) has no counterpart yet; here the argmin costs one warp
 // reduction per query, which a later change can gate the same way.
+// 1 <= M <= 16384 a launch (the wrapper, ops/hamming.py, splits more).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +47,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 4;
 constexpr int kRowsPerBlock = kThreads * kRowsPerThread;   // < 2^16
+// The widest rows: the wide instance's 1,024 rows of W words and 16,384
+// query keys in a block's 227 KB of shared memory.
+constexpr int kMaxWords = (232448 - 16384 * 4) / (kRowsPerBlock * 4);
 
 template <bool kKeys>
 __global__ void __launch_bounds__(kThreads)
@@ -106,6 +115,76 @@ corpus_scan_kernel(const unsigned long long* __restrict__ q, int M,
   }
 }
 
+template <bool kKeys>
+__global__ void __launch_bounds__(kThreads)
+corpus_scan_wide_kernel(const uint32_t* __restrict__ q, int M,
+                        const uint32_t* __restrict__ corpus, int N, int W,
+                        int32_t* __restrict__ frame_min,
+                        unsigned long long* __restrict__ keys) {
+  extern __shared__ unsigned int s_dyn[];
+  unsigned int* s_key = s_dyn;                               // (M,) if kKeys
+  uint32_t* s_c = s_dyn + (kKeys ? M : 0);                   // (W, kRowsPerBlock)
+  const int tid = threadIdx.x;
+  if (kKeys)
+    for (int i = tid; i < M; i += kThreads) s_key[i] = 0xffffffffu;
+  const int base = blockIdx.x * kRowsPerBlock;
+  const long long n_words = (long long)min(kRowsPerBlock, N - base) * W;
+  for (int i = tid; i < n_words; i += kThreads) {
+    const int r = i / W, w = i - r * W;
+    s_c[w * kRowsPerBlock + r] = corpus[(size_t)base * W + i];
+  }
+  __syncthreads();
+
+  bool valid[kRowsPerThread];
+  int fmin[kRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    valid[k] = base + k * kThreads + tid < N;
+    fmin[k] = 0x7fffffff;
+  }
+  for (int m = 0; m < M; ++m) {
+    const uint32_t* qm = q + (size_t)m * W;
+    int d[kRowsPerThread] = {};
+    for (int w = 0; w < W; ++w) {
+      const uint32_t qw = __ldg(qm + w);
+#pragma unroll
+      for (int k = 0; k < kRowsPerThread; ++k)
+        d[k] += __popc(qw ^ s_c[w * kRowsPerBlock + k * kThreads + tid]);
+    }
+    unsigned int best = 0xffffffffu;
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      if (valid[k]) {
+        fmin[k] = min(fmin[k], d[k]);
+        if (kKeys)
+          best = min(best, ((unsigned)d[k] << 16) | (unsigned)(k * kThreads + tid));
+      }
+    }
+    if (kKeys) {
+      best = __reduce_min_sync(0xffffffffu, best);
+      if ((tid & 31) == 0 && best != 0xffffffffu) atomicMin(&s_key[m], best);
+    }
+  }
+
+  if (frame_min != nullptr) {
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      if (valid[k]) frame_min[base + k * kThreads + tid] = fmin[k];
+    }
+  }
+  if (!kKeys) return;
+  __syncthreads();
+  for (int m = tid; m < M; m += kThreads) {
+    const unsigned int lk = s_key[m];
+    if (lk != 0xffffffffu) {
+      const unsigned long long g =
+          ((unsigned long long)(lk >> 16) << 32) |
+          (unsigned long long)(unsigned)(base + (int)(lk & 0xffffu));
+      atomicMin(&keys[m], g);
+    }
+  }
+}
+
 __global__ void unpack_keys_kernel(const unsigned long long* __restrict__ keys,
                                    int M, int32_t* __restrict__ q_min,
                                    int32_t* __restrict__ q_arg) {
@@ -116,6 +195,53 @@ __global__ void unpack_keys_kernel(const unsigned long long* __restrict__ keys,
   }
 }
 
+// Opts ``fn`` in to ``smem`` bytes of dynamic shared memory where that is
+// above the default 48 KB.
+cudaError_t allow_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// One scan launch, frame_min into ``frame_min`` if not null and the keys
+// into ``keys`` if not null (the keys instance).
+cudaError_t scan(const void* q, int M, const void* corpus, int N, int W,
+                 void* frame_min, void* keys, cudaStream_t s) {
+  const int blocks = (int)(((long long)N + kRowsPerBlock - 1) / kRowsPerBlock);
+  const bool with_keys = keys != nullptr;
+  cudaError_t e;
+  if (W == 2) {
+    const size_t smem = (size_t)M * (sizeof(unsigned long long) +
+                                     (with_keys ? sizeof(unsigned int) : 0));
+    const void* fn = with_keys ? (const void*)corpus_scan_kernel<true>
+                               : (const void*)corpus_scan_kernel<false>;
+    if ((e = allow_smem(fn, smem)) != cudaSuccess) return e;
+    if (with_keys)
+      corpus_scan_kernel<true><<<blocks, kThreads, smem, s>>>(
+          (const unsigned long long*)q, M, (const unsigned long long*)corpus, N,
+          (int32_t*)frame_min, (unsigned long long*)keys);
+    else
+      corpus_scan_kernel<false><<<blocks, kThreads, smem, s>>>(
+          (const unsigned long long*)q, M, (const unsigned long long*)corpus, N,
+          (int32_t*)frame_min, nullptr);
+  } else {
+    const size_t smem = sizeof(unsigned int) *
+                        ((with_keys ? (size_t)M : 0) + (size_t)W * kRowsPerBlock);
+    const void* fn = with_keys ? (const void*)corpus_scan_wide_kernel<true>
+                               : (const void*)corpus_scan_wide_kernel<false>;
+    if ((e = allow_smem(fn, smem)) != cudaSuccess) return e;
+    if (with_keys)
+      corpus_scan_wide_kernel<true><<<blocks, kThreads, smem, s>>>(
+          (const uint32_t*)q, M, (const uint32_t*)corpus, N, W,
+          (int32_t*)frame_min, (unsigned long long*)keys);
+    else
+      corpus_scan_wide_kernel<false><<<blocks, kThreads, smem, s>>>(
+          (const uint32_t*)q, M, (const uint32_t*)corpus, N, W,
+          (int32_t*)frame_min, nullptr);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -124,28 +250,18 @@ const char* tvz_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// q (M,) and corpus (N,) 64-bit rows; frame_min (N,) int32 or null;
-// keys (M,) uint64 scratch; q_min, q_arg (M,) int32.
-int tvz_corpus_scan(const void* q, int M, const void* corpus, int N,
+// q (M, W) and corpus (N, W) int32 rows, 1 <= M <= 16384 and W in
+// [1, kMaxWords] (40: the wide instance's rows in shared memory); frame_min (N,) int32
+// or null; keys (M,) uint64 scratch; q_min, q_arg (M,) int32.
+int tvz_corpus_scan(const void* q, int M, const void* corpus, int N, int W,
                     void* frame_min, void* keys, void* q_min, void* q_arg,
                     void* stream) {
-  if (M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxWords)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)M * (sizeof(unsigned long long) + sizeof(unsigned int));
-  cudaError_t e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute((const void*)corpus_scan_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  e = cudaMemsetAsync(keys, 0xff, (size_t)M * sizeof(unsigned long long), s);
+  cudaError_t e = cudaMemsetAsync(keys, 0xff, (size_t)M * sizeof(unsigned long long), s);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (int)(((long long)N + kRowsPerBlock - 1) / kRowsPerBlock);
-  corpus_scan_kernel<true><<<blocks, kThreads, smem, s>>>(
-      (const unsigned long long*)q, M, (const unsigned long long*)corpus, N,
-      (int32_t*)frame_min, (unsigned long long*)keys);
-  e = cudaGetLastError();
+  e = scan(q, M, corpus, N, W, frame_min, keys, s);
   if (e != cudaSuccess) return (int)e;
   unpack_keys_kernel<<<(M + 255) / 256, 256, 0, s>>>(
       (const unsigned long long*)keys, M, (int32_t*)q_min, (int32_t*)q_arg);
@@ -153,21 +269,12 @@ int tvz_corpus_scan(const void* q, int M, const void* corpus, int N,
 }
 
 // frame_min (N,) int32 only: no keys, no atomics, one launch.
-int tvz_corpus_frame_min(const void* q, int M, const void* corpus, int N,
+int tvz_corpus_frame_min(const void* q, int M, const void* corpus, int N, int W,
                          void* frame_min, void* stream) {
-  if (M <= 0 || N <= 0 || frame_min == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)M * sizeof(unsigned long long);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        (const void*)corpus_scan_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (int)(((long long)N + kRowsPerBlock - 1) / kRowsPerBlock);
-  corpus_scan_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const unsigned long long*)q, M, (const unsigned long long*)corpus, N,
-      (int32_t*)frame_min, nullptr);
-  return (int)cudaGetLastError();
+  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxWords ||
+      frame_min == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)scan(q, M, corpus, N, W, frame_min, nullptr, (cudaStream_t)stream);
 }
 
 }  // extern "C"

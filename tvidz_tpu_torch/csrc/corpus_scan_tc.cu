@@ -1,6 +1,8 @@
-// K4 — corpus scan on the tensor cores: M packed 64-bit query hashes
-// against N corpus hashes, through a ±1 int8 matrix product, in one
-// persistent launch.
+// K4 — corpus scan on the tensor cores: M packed query fingerprints of W
+// 32-bit words against N corpus fingerprints, through a ±1 int8 matrix
+// product, in one persistent launch. Any W from 1 to kMaxWords (37); the
+// production W = 2 (64-bit pHash) has an instance of its own, and phash256
+// runs W = 8.
 //
 // Replaces the four MXU variants of the corpus scan in
 // tvidz_tpu/ops/hamming.py, one template mode each:
@@ -14,11 +16,13 @@
 //   q_min[m]     = min_n hamming(q[m], c[n])             (M,) int32
 //   q_arg[m]     = the FIRST n attaining q_min[m]         (M,) int32
 // kFrameMin writes frame_min only, kQueryNearest (q_min, q_arg) only.
-// Sentinel rows (all ones) are ordinary rows. 1 <= M <= 16384.
+// Sentinel rows (all ones) are ordinary rows. 1 <= M <= 16384 (the
+// wrapper, ops/hamming.py, splits more queries into chunks of 16384).
 //
 // Formulation. Bits unpack to ±1 (set -> +1), MSB-first per 32-bit word
-// (golden.pack_bits order); dot = sum of 64 products and
-// hamming = (64 - dot) / 2, exact in int32.
+// (golden.pack_bits order); dot = sum of 32 W products and
+// hamming = (32 W - dot) / 2, exact in int32. A k32 step of wgmma is one
+// word: W steps per 64 rows.
 //
 // What bounds it on the H100 (M=128, N=2^20): the tensor-core work,
 // 2 x 128 x 64 x 2^20 = 17 G int8 ops (8.7 us at 1,979 TOPS); HBM traffic
@@ -43,23 +47,30 @@
 //   one wgmma pair per 64 rows. Within a thread a later row never wins a
 //   tie, so a running best with strict improvement keeps the first index. For M > 128 a CTA walks
 //   its range again per chunk (the range is in L2).
-// - Corpus in flight: packed 8-byte rows come through a 6-tile cp.async
-//   ring in shared memory.
+// - Corpus in flight: packed rows of 4 W bytes come through a cp.async
+//   ring in shared memory: 6 tiles at W = 2, else as many 1 KB-W tiles as
+//   fit in 32 KB (2 to 6). The query chunk takes 32 W bytes a query (32 KB
+//   at W = 8), so the grid (occupancy) is asked per W.
 // - Epilogues on the CUDA cores, per thread 2 corpus rows x 32 queries:
 //   frame_min: a row max with the DPX __vimax3_s32 (two pairs an
 //   instruction), two shuffles, one store per row;
 //   argmin (kFull, kFullCols, kTwoPhase, kQueryNearest): per thread and
-//   query column a running best KEY, (dot + 64) << 24 | (0xffffff - row
-//   offset in the CTA's range): the largest dot, then the first row. A
+//   query column a running best KEY, (dot + 32 W) / 2 << shift | (low -
+//   row offset in the CTA's range) (KeyForm: shift = 25, low = 2^25 - 1 at
+//   W = 2; 23 at W = 8): the largest dot, then the first row. A
 //   pair's key is one multiply-add from its dot and one DPX __vimax3_u32
 //   folds two pairs into the running key, so a strict improvement is
 //   found with no compare, branch or vote at all: kTwoPhase's gate became
 //   the key's order, and it runs kFull's code. kFullCols takes the winning
 //   row from the (N,) table (which holds 0..N-1) where the other modes
-//   compute it: the TPU kernel's hoisted iota. A range holds at most
-//   2^24 - 1 rows (N < 2^31 on 132 SMs: ~1.6 x 10^7).
-// - Masking: in the last tile only, rows past N get dot -64 and key 0, so
-//   they can neither win nor be stored.
+//   compute it: the TPU kernel's hoisted iota. A range holds fewer than
+//   low rows (2^23 - 1 at W = 8: N < 2^31 on 132 SMs needs ~1.6 x 10^7 at
+//   one CTA an SM; a W-word corpus that fits the card's memory never comes
+//   near it).
+// - Masking: in the last tile only, rows past N get dot -32 W and key 0,
+//   so they can neither win nor be stored.
+// - W != 2: the A fragments of kGroupW = 4 k-steps at a time (a wait
+//   between groups keeps their registers few).
 // - One combine: per (CTA, query) one 64-bit atomicMin of
 //   (dist << 32 | row) into a workspace of keys, exact with ties across
 //   CTAs; the last CTA to finish (an atomic ticket) turns the keys into
@@ -70,9 +81,8 @@
 // (two multiply-adds and a three-way max per two pairs), frame_min's 0.5,
 // which at M=128, N=2^24 is as long as the products or longer. A key in 16
 // bits, two to a register (DPX's 16x2 forms), is the next lever.
-// Resources (nvcc 12.8 -Xptxas -v): 166 registers and 21,569 bytes of
-// static shared memory for the argmin modes, 98 registers and 20,544 bytes
-// for frame_min; no spills.
+// Resources: chip_smoke.py's build phase prints ptxas's registers and
+// spills for every instance.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,8 +100,11 @@ constexpr int kTileN = 256;                  // rows per tile (ring stage)
 constexpr int kSubs = kTileN / 64;           // wgmma m64 per tile
 constexpr int kQChunk = 128;                 // queries held at a time (wgmma N)
 constexpr int kCols = kQChunk / 4;           // query columns per thread
-constexpr int kStages = 6;                   // corpus tiles in the ring
 constexpr unsigned long long kNoKey = ~0ull;
+constexpr int kMaxSmem = 232448;             // a block's shared memory on Hopper
+constexpr int kStaticSmem = 2048;            // s_key, s_pm1, s_last (rounded up)
+// The widest rows: the query chunk and a 2-tile ring in shared memory.
+constexpr int kMaxWords = (kMaxSmem - kStaticSmem) / (kQChunk * 32 + 2 * kTileN * 4);
 
 // Bits 4i .. 4i+3 (MSB-first) of a packed word as 4 ±1 bytes (set -> +1):
 // one entry of a 16-entry table in shared memory, indexed by the nibble.
@@ -108,16 +121,16 @@ __device__ __forceinline__ int pm1_entry(int n) {    // the table's entry n
 
 // Byte offset of (query r, bit k) in the no-swizzle core-matrix layout:
 // core matrices of 8 queries x 16 bytes, 128 bytes apart along k (LBO) and
-// 512 bytes apart along the queries (SBO).
-__device__ __forceinline__ int q_offset(int r, int k) {
-  return (r >> 3) * 512 + (k >> 4) * 128 + (r & 7) * 16 + (k & 15);
+// sbo = 256 W bytes apart along the queries (SBO).
+__device__ __forceinline__ int q_offset(int r, int k, unsigned sbo) {
+  return (r >> 3) * sbo + (k >> 4) * 128 + (r & 7) * 16 + (k & 15);
 }
 
 // wgmma shared-memory descriptor: start >> 4, LBO and SBO in 16-byte
 // units, no swizzle.
-__device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned sbo) {
   return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(512 >> 4) << 32);
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 // d (64 corpus rows x 128 queries, s32) = A (registers) x B (descriptor),
@@ -181,10 +194,65 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads, 3)
+// The running key of a (query, row) pair, (dot + 32 W) / 2 << kShift |
+// (kLow - row offset): dot + 32 W = 2 (32 W - hamming) is even, so its
+// half, 32 W - hamming, takes bits(32 W) bits and the row offset the rest.
+// One multiply-add from the dot: dot * 2^(kShift - 1) + kBase + low.
+struct KeyForm {
+  int shift;          // 32 - bits(32 W): 25 at W = 2, 23 at W = 8
+  unsigned low;       // 2^shift - 1: a range holds at most low - 1 rows
+  unsigned mul;       // 2^(shift - 1)
+  unsigned base;      // 32 W << (shift - 1)
+};
+
+__host__ __device__ __forceinline__ KeyForm key_form(int W) {
+  int bits = 0;
+  while ((32 * W) >> bits) ++bits;
+  KeyForm k;
+  k.shift = 32 - bits;
+  k.low = (1u << k.shift) - 1u;
+  k.mul = 1u << (k.shift - 1);
+  k.base = (unsigned)(32 * W) << (k.shift - 1);
+  return k;
+}
+
+// Corpus tiles in the ring: 6 at W = 2; otherwise as many of 1,024 W bytes
+// as fit in 32 KB, 2 to 6.
+__host__ __device__ __forceinline__ int ring_stages(int W) {
+  if (W == 2) return 6;
+  const int n = 32 * 1024 / (kTileN * 4 * W);
+  return n < 2 ? 2 : (n > 6 ? 6 : n);
+}
+
+// Dynamic shared memory: the unpacked query chunk (32 W bytes a query),
+// then the corpus ring.
+__host__ __device__ __forceinline__ size_t scan_smem(int W) {
+  return (size_t)kQChunk * 32 * W + (size_t)ring_stages(W) * kTileN * 4 * W;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+// cp.async.wait_group with a pending count known only at run time (0..4).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>(); break;
+  }
+}
+
+// FW = 2: the production instance, 64-bit rows, every size fixed at
+// compile time. FW = 0: any W >= 1 at run time, rows of W words, the
+// query A fragments kGroupW k-steps at a time.
+template <int MODE, int FW>
+__global__ void __launch_bounds__(kThreads, FW == 2 ? 3 : 2)
 corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
-                   const unsigned long long* __restrict__ corpus, int N,
+                   const uint32_t* __restrict__ corpus, int N, int Wrt,
                    int tiles, const int32_t* __restrict__ rows,
                    int32_t* __restrict__ frame_min,
                    unsigned long long* __restrict__ keys,
@@ -192,9 +260,15 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
                    int32_t* __restrict__ q_min, int32_t* __restrict__ q_arg) {
   constexpr bool kFmin = MODE != kQueryNearest;
   constexpr bool kArg = MODE != kFrameMin;
+  constexpr int kGroupW = FW == 2 ? 2 : 4;     // k-steps per wgmma group
+  const int W = FW > 0 ? FW : Wrt;
+  const int stages = ring_stages(W);
+  const KeyForm kf = key_form(W);
+  const int dot_min = -32 * W;                 // every bit differs
 
-  __shared__ __align__(128) int8_t s_q[kQChunk * 64];
-  __shared__ __align__(16) unsigned long long s_ring[kStages][kTileN];
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* s_q = reinterpret_cast<int8_t*>(smem);                 // kQChunk x 32 W
+  uint32_t* s_ring = reinterpret_cast<uint32_t*>(smem + kQChunk * 32 * W);
   __shared__ unsigned long long s_key[kQChunk];
   __shared__ int s_pm1[16];
   __shared__ bool s_last;
@@ -207,9 +281,9 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
   const int tile_begin = (int)((long long)tiles * blockIdx.x / gridDim.x);
   const int ntiles =
       (int)((long long)tiles * (blockIdx.x + 1) / gridDim.x) - tile_begin;
-  const int range_base = tile_begin * kTileN;    // < 2^31 - 2^24 (launch)
+  const int range_base = tile_begin * kTileN;    // < 2^31 (launch)
   const unsigned q_addr = (unsigned)__cvta_generic_to_shared(s_q);
-  const uint64_t desc[2] = {smem_desc(q_addr), smem_desc(q_addr + 256)};
+  const unsigned sbo = 256u * W;                 // bytes between 8-query groups
 
   if (tid < 16) s_pm1[tid] = pm1_entry(tid);
   for (int q0 = 0; q0 < M; q0 += kQChunk) {
@@ -221,11 +295,14 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
     // is never stored).
     {
       const int r = tid;                 // kThreads == kQChunk
-      const uint2 w = reinterpret_cast<const uint2*>(q)[q0 + (r < qn ? r : 0)];
+      const uint32_t* qr = q + (size_t)(q0 + (r < qn ? r : 0)) * W;
+      for (int w = 0; w < W; ++w) {
+        const uint32_t word = qr[w];
 #pragma unroll
-      for (int part = 0; part < 16; ++part)
-        *reinterpret_cast<int*>(s_q + q_offset(r, 4 * part)) =
-            s_pm1[nibble_index(part < 8 ? w.x : w.y, part & 7)];
+        for (int part = 0; part < 8; ++part)
+          *reinterpret_cast<int*>(s_q + q_offset(r, 32 * w + 4 * part, sbo)) =
+              s_pm1[nibble_index(word, part)];
+      }
     }
     if (kArg)
       for (int m = tid; m < kQChunk; m += kThreads) s_key[m] = kNoKey;
@@ -233,8 +310,7 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
     __syncthreads();
 
     // Running best per query column 8c + 2t + j (index 2c + j), as a key
-    // (dot + 64) << 24 | (0xffffff - row + range_base): the largest dot,
-    // then the first row; 0 before any row.
+    // (KeyForm): the largest dot, then the first row; 0 before any row.
     unsigned best[kCols];
 #pragma unroll
     for (int i = 0; i < kCols; ++i) best[i] = 0;
@@ -246,10 +322,10 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
       if (tile_base + kTileN > N) {      // the last tile: rows past N
 #pragma unroll
         for (int c = 0; c < 16; ++c) {
-          acc[4 * c] = ok_lo ? acc[4 * c] : -64;
-          acc[4 * c + 1] = ok_lo ? acc[4 * c + 1] : -64;
-          acc[4 * c + 2] = ok_hi ? acc[4 * c + 2] : -64;
-          acc[4 * c + 3] = ok_hi ? acc[4 * c + 3] : -64;
+          acc[4 * c] = ok_lo ? acc[4 * c] : dot_min;
+          acc[4 * c + 1] = ok_lo ? acc[4 * c + 1] : dot_min;
+          acc[4 * c + 2] = ok_hi ? acc[4 * c + 2] : dot_min;
+          acc[4 * c + 3] = ok_hi ? acc[4 * c + 3] : dot_min;
         }
       }
       if (kFmin) {
@@ -272,7 +348,7 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
         }
         const int row = t == 0 ? row_lo : row_hi;
         if (t < 2 && row < N) {
-          int fm = (64 - (t == 0 ? m_lo : m_hi)) >> 1;
+          int fm = (32 * W - (t == 0 ? m_lo : m_hi)) >> 1;
           // Later chunks: the same thread stored this row before.
           if (q0 > 0) fm = min(fm, frame_min[row]);
           frame_min[row] = fm;
@@ -280,62 +356,82 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
       }
       if (kArg) {
         // A pair's key is one multiply-add from its dot; a masked row's
-        // (dot -64, no row bits) is 0 and never wins.
-        const unsigned k_lo = ok_lo ? (64u << 24) | (0xffffffu - (row_lo - range_base))
-                                    : 64u << 24;
-        const unsigned k_hi = ok_hi ? (64u << 24) | (0xffffffu - (row_hi - range_base))
-                                    : 64u << 24;
+        // (dot -32 W, no row bits) is 0 and never wins.
+        const unsigned k_lo = ok_lo ? kf.base | (kf.low - (row_lo - range_base)) : kf.base;
+        const unsigned k_hi = ok_hi ? kf.base | (kf.low - (row_hi - range_base)) : kf.base;
 #pragma unroll
         for (int c = 0; c < 16; ++c)
 #pragma unroll
           for (int j = 0; j < 2; ++j)
             best[2 * c + j] = __vimax3_u32(best[2 * c + j],
-                                           (unsigned)acc[4 * c + j] * (1u << 24) + k_lo,
-                                           (unsigned)acc[4 * c + 2 + j] * (1u << 24) + k_hi);
+                                           (unsigned)acc[4 * c + j] * kf.mul + k_lo,
+                                           (unsigned)acc[4 * c + 2 + j] * kf.mul + k_hi);
       }
     };
 
     auto issue = [&](int i) {            // tile i of the range into the ring
       if (i < ntiles) {
+        const long long r0 = (long long)(tile_begin + i) * kTileN;
+        uint32_t* slot = s_ring + (size_t)(i % stages) * kTileN * W;
+        if (FW == 2) {
 #pragma unroll
-        for (int k = 0; k < kTileN / kThreads; ++k) {
-          const int c = k * kThreads + tid;
-          const long long r = (long long)(tile_begin + i) * kTileN + c;
-          cp_async8(&s_ring[i % kStages][c], corpus + (r < N ? r : N - 1));
+          for (int k = 0; k < kTileN / kThreads; ++k) {
+            const int c = k * kThreads + tid;
+            const long long r = r0 + c;
+            cp_async8(slot + 2 * c, corpus + 2 * (r < N ? r : N - 1));
+          }
+        } else {
+          // The tile's words are contiguous; words of rows past N come
+          // from row 0 of the tile (masked in the epilogue).
+          const long long valid = ((long long)N - r0) * W;
+          for (int c = tid; c < kTileN * W; c += kThreads)
+            cp_async4(slot + c, corpus + r0 * W + (c < valid ? c : 0));
         }
       }
       cp_async_commit();
     };
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) issue(s);
+    for (int s = 0; s < stages - 1; ++s) issue(s);
 
     int acc[64];
     for (int i = 0; i < ntiles; ++i) {
-      cp_async_wait<kStages - 2>();
+      if (FW == 2) cp_async_wait<4>();   // stages - 2
+      else cp_async_wait_n(stages - 2);
       __syncthreads();                   // tile i landed; tile i-1 was read
-      issue(i + kStages - 1);
+      issue(i + stages - 1);
       const long long tile_base = (long long)(tile_begin + i) * kTileN;
+      const uint32_t* slot = s_ring + (size_t)(i % stages) * kTileN * W;
 #pragma unroll
       for (int sub = 0; sub < kSubs; ++sub) {
         const int r_lo = r_warp + sub * 64;
-        const unsigned long long v0 = s_ring[i % kStages][r_lo];
-        const unsigned long long v1 = s_ring[i % kStages][r_lo + 8];
-        int a[2][4];
+        // k-steps w0 .. w0 + kGroupW - 1: word w of both rows per step.
+        for (int w0 = 0; w0 < W; w0 += kGroupW) {
+          int a[kGroupW][4];
+          unsigned long long v_lo = 0, v_hi = 0;
+          if (FW == 2) {                 // one 8-byte load a row
+            v_lo = reinterpret_cast<const unsigned long long*>(slot)[r_lo];
+            v_hi = reinterpret_cast<const unsigned long long*>(slot)[r_lo + 8];
+          }
 #pragma unroll
-        for (int s = 0; s < 2; ++s) {    // k-step s: word s of each row
-          const uint32_t w0 = (uint32_t)(v0 >> (32 * s)), w1 = (uint32_t)(v1 >> (32 * s));
-          a[s][0] = s_pm1[nibble_index(w0, t)];
-          a[s][1] = s_pm1[nibble_index(w1, t)];
-          a[s][2] = s_pm1[nibble_index(w0, 4 + t)];
-          a[s][3] = s_pm1[nibble_index(w1, 4 + t)];
+          for (int s = 0; s < kGroupW; ++s) {
+            const int w = w0 + s < W ? w0 + s : w0;
+            const uint32_t w_lo = FW == 2 ? (uint32_t)(v_lo >> (32 * s)) : slot[r_lo * W + w];
+            const uint32_t w_hi = FW == 2 ? (uint32_t)(v_hi >> (32 * s)) : slot[(r_lo + 8) * W + w];
+            a[s][0] = s_pm1[nibble_index(w_lo, t)];
+            a[s][1] = s_pm1[nibble_index(w_hi, t)];
+            a[s][2] = s_pm1[nibble_index(w_lo, 4 + t)];
+            a[s][3] = s_pm1[nibble_index(w_hi, 4 + t)];
+          }
+          fence_operands(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < kGroupW; ++s)
+            if (w0 + s < W)              // the same in every thread
+              wgmma_m64n128k32(acc, a[s], smem_desc(q_addr + 256 * (w0 + s), sbo),
+                               w0 + s > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(acc);
         }
-        fence_operands(acc);
-        wgmma_fence();
-        wgmma_m64n128k32(acc, a[0], desc[0], 0);
-        wgmma_m64n128k32(acc, a[1], desc[1], 1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operands(acc);
         epilogue(acc, tile_base, r_lo);
       }
     }
@@ -347,10 +443,10 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
       for (int i = 0; i < kCols; ++i) {
         unsigned long long k = kNoKey;
         if (best[i] != 0) {
-          const int dot = (int)(best[i] >> 24) - 64;
-          int r = range_base + (int)(0xffffffu - (best[i] & 0xffffffu));
+          const int dist = 32 * W - (int)(best[i] >> kf.shift);
+          int r = range_base + (int)(kf.low - (best[i] & kf.low));
           if (MODE == kFullCols) r = rows[r];
-          k = ((unsigned long long)((64 - dot) >> 1) << 32) | (unsigned)r;
+          k = ((unsigned long long)dist << 32) | (unsigned)r;
         }
 #pragma unroll
         for (int x = 4; x <= 16; x <<= 1) {
@@ -384,42 +480,61 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
   }
 }
 
-// The grid for an N-row corpus: as many CTAs as fit on the card at once
-// (the occupancy API, asked once per process and mode), at most one per
-// tile.
+template <int MODE, int FW>
+const void* kernel_of() {
+  return (const void*)corpus_scan_kernel<MODE, FW>;
+}
+
+// The grid for an N-row corpus of W-word rows: as many CTAs as fit on the
+// card at once (the occupancy API, asked once per process, mode and W), at
+// most one per tile. Where W needs more than 48 KB of shared memory the
+// instance opts in to the most a block may have, so that a narrower W asked
+// later never lowers the limit under a wider one's launches.
 template <int MODE>
-cudaError_t grid_for(int N, int* grid) {
-  static int ctas = 0;                 // once per process (a benign race)
-  if (ctas == 0) {
+cudaError_t grid_for(int N, int W, int* grid) {
+  static int ctas_by_w[kMaxWords + 1];   // once per process (a benign race)
+  const size_t smem = scan_smem(W);
+  if (W < 1 || W > kMaxWords || smem + kStaticSmem > (size_t)kMaxSmem)
+    return cudaErrorInvalidValue;
+  if (ctas_by_w[W] == 0) {
+    const void* fn = W == 2 ? kernel_of<MODE, 2>() : kernel_of<MODE, 0>();
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && smem > 48 * 1024)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem - kStaticSmem);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, corpus_scan_kernel<MODE>, kThreads, 0);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
     if (e != cudaSuccess) return e;
-    ctas = sms * (per_sm > 0 ? per_sm : 1);
+    ctas_by_w[W] = sms * (per_sm > 0 ? per_sm : 1);
   }
+  const int ctas = ctas_by_w[W];
   const int tiles = (int)(((long long)N + kTileN - 1) / kTileN);
   *grid = tiles < ctas ? tiles : ctas;
-  // A running key holds a row of its CTA's range in 24 bits.
-  if ((long long)((tiles + *grid - 1) / *grid) * kTileN > 0xffffff)
+  // A running key holds a row of its CTA's range below key_form(W).low.
+  if ((long long)((tiles + *grid - 1) / *grid) * kTileN >= (long long)key_form(W).low)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
 template <int MODE>
-cudaError_t launch(const uint32_t* q, int M, const unsigned long long* corpus,
-                   int N, const int32_t* rows, int32_t* frame_min,
+cudaError_t launch(const uint32_t* q, int M, const uint32_t* corpus, int N,
+                   int W, const int32_t* rows, int32_t* frame_min,
                    unsigned long long* keys, unsigned* ticket, int32_t* q_min,
                    int32_t* q_arg, cudaStream_t s) {
   int grid = 0;
-  const cudaError_t e = grid_for<MODE>(N, &grid);
+  const cudaError_t e = grid_for<MODE>(N, W, &grid);
   if (e != cudaSuccess) return e;
   const int tiles = (int)(((long long)N + kTileN - 1) / kTileN);
-  corpus_scan_kernel<MODE><<<grid, kThreads, 0, s>>>(
-      q, M, corpus, N, tiles, rows, frame_min, keys, ticket, q_min, q_arg);
+  const size_t smem = scan_smem(W);
+  if (W == 2)
+    corpus_scan_kernel<MODE, 2><<<grid, kThreads, smem, s>>>(
+        q, M, corpus, N, W, tiles, rows, frame_min, keys, ticket, q_min, q_arg);
+  else
+    corpus_scan_kernel<MODE, 0><<<grid, kThreads, smem, s>>>(
+        q, M, corpus, N, W, tiles, rows, frame_min, keys, ticket, q_min, q_arg);
   return cudaGetLastError();
 }
 
@@ -431,21 +546,22 @@ const char* tvz_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// q (M, 2) packed int32 rows; corpus (N,) 64-bit rows; rows (N,) int32
-// table (mode 1 only, else null); frame_min (N,) int32 (modes 0-3, else
-// null); keys (>= M,) uint64 workspace holding all ones and ticket one
-// uint32 holding 0 (modes 0-2 and 4; both are left so again); q_min and
-// q_arg (M,) int32 (modes 0-2 and 4, else null). mode: 0 full,
+// q (M, W) and corpus (N, W) packed int32 rows, W in [1, kMaxWords]; rows
+// (N,) int32 table (mode 1 only, else null); frame_min (N,) int32 (modes
+// 0-3, else null); keys (>= M,) uint64 workspace holding all ones and
+// ticket one uint32 holding 0 (modes 0-2 and 4; both are left so again);
+// q_min and q_arg (M,) int32 (modes 0-2 and 4, else null). mode: 0 full,
 // 1 full_cols, 2 twophase, 3 frame_min, 4 query_nearest.
-int tvz_corpus_scan_tc(const void* q, int M, const void* corpus, int N,
+int tvz_corpus_scan_tc(const void* q, int M, const void* corpus, int N, int W,
                        const void* rows, int mode, void* frame_min,
                        void* keys, void* ticket, void* q_min, void* q_arg,
                        void* stream) {
-  if (M <= 0 || M > 16384 || N <= 0 || mode < 0 || mode > 4)
+  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxWords || mode < 0 ||
+      mode > 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const uint32_t* qq = (const uint32_t*)q;
-  const unsigned long long* c = (const unsigned long long*)corpus;
+  const uint32_t* c = (const uint32_t*)corpus;
   const int32_t* r = (const int32_t*)rows;
   int32_t* f = (int32_t*)frame_min;
   unsigned long long* k = (unsigned long long*)keys;
@@ -453,25 +569,25 @@ int tvz_corpus_scan_tc(const void* q, int M, const void* corpus, int N,
   int32_t* mn = (int32_t*)q_min;
   int32_t* ag = (int32_t*)q_arg;
   switch (mode) {
-    case kFull: return (int)launch<kFull>(qq, M, c, N, r, f, k, tk, mn, ag, s);
-    case kFullCols: return (int)launch<kFullCols>(qq, M, c, N, r, f, k, tk, mn, ag, s);
-    case kTwoPhase: return (int)launch<kTwoPhase>(qq, M, c, N, r, f, k, tk, mn, ag, s);
-    case kFrameMin: return (int)launch<kFrameMin>(qq, M, c, N, r, f, k, tk, mn, ag, s);
-    default: return (int)launch<kQueryNearest>(qq, M, c, N, r, f, k, tk, mn, ag, s);
+    case kFull: return (int)launch<kFull>(qq, M, c, N, W, r, f, k, tk, mn, ag, s);
+    case kFullCols: return (int)launch<kFullCols>(qq, M, c, N, W, r, f, k, tk, mn, ag, s);
+    case kTwoPhase: return (int)launch<kTwoPhase>(qq, M, c, N, W, r, f, k, tk, mn, ag, s);
+    case kFrameMin: return (int)launch<kFrameMin>(qq, M, c, N, W, r, f, k, tk, mn, ag, s);
+    default: return (int)launch<kQueryNearest>(qq, M, c, N, W, r, f, k, tk, mn, ag, s);
   }
 }
 
-// The grid (CTA count) a call of this mode launches for an N-row corpus on
-// the current device, into *grid; launches nothing.
-int tvz_corpus_scan_tc_grid(int mode, int N, int* grid) {
+// The grid (CTA count) a call of this mode launches for an N-row corpus of
+// W-word rows on the current device, into *grid; launches nothing.
+int tvz_corpus_scan_tc_grid(int mode, int N, int W, int* grid) {
   if (N <= 0 || mode < 0 || mode > 4 || grid == nullptr)
     return (int)cudaErrorInvalidValue;
   switch (mode) {
-    case kFull: return (int)grid_for<kFull>(N, grid);
-    case kFullCols: return (int)grid_for<kFullCols>(N, grid);
-    case kTwoPhase: return (int)grid_for<kTwoPhase>(N, grid);
-    case kFrameMin: return (int)grid_for<kFrameMin>(N, grid);
-    default: return (int)grid_for<kQueryNearest>(N, grid);
+    case kFull: return (int)grid_for<kFull>(N, W, grid);
+    case kFullCols: return (int)grid_for<kFullCols>(N, W, grid);
+    case kTwoPhase: return (int)grid_for<kTwoPhase>(N, W, grid);
+    case kFrameMin: return (int)grid_for<kFrameMin>(N, W, grid);
+    default: return (int)grid_for<kQueryNearest>(N, W, grid);
   }
 }
 

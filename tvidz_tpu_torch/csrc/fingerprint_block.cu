@@ -43,7 +43,23 @@
 //   (TF32 flips median-adjacent bits), in a fixed order, so a frame's hash
 //   does not depend on S, T or its place in a range, and runs repeat bit
 //   for bit.
-// Widths: W <= 160 and a multiple of 4, H*W a multiple of 16.
+// That form (form 0) takes W <= 160 and a multiple of 4, H*W a multiple of
+// 16, and three frames in shared memory (3 H W + 32 H + 2.4 KB <= 227 KB).
+//
+// Every other geometry (form 1, fingerprint_general_kernel): the same
+// persistent ranges, segment table, score and carry logic and median, but
+// frames are read from global memory (L2) byte by byte, so any H, W and
+// alignment works: a ring of whole frames does not fit at 180x320 three to
+// an SM, nor at all at 720x1280. A warp takes groups of 4 rows; lane l
+// takes columns l, l + 32, ... of them, reading Rᵀ's column as two float4
+// from shared memory once for the 4 rows, and the predecessor's bytes (or
+// the carry) beside the frame's, so mafd is summed in the same pass as
+// an exact int32 (255 H W < 2^31: H W <= 8,421,504). It is bound by
+// memory latency: at T = 128 a CTA holds one frame with 8 warps (PERF.md). A row's 8 sums go
+// through the same reduce-scatter tree with selects in place of the
+// permuted R rows, then L (read from global) is folded in row by row and
+// the warps' sums added in warp order: the bit rules of form 0 hold here
+// too, per geometry. Rᵀ takes 32 W bytes of shared memory: W <= 7,187.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,12 +71,14 @@ constexpr int kBits = kHash * kHash;   // 64 coefficients, 2 words
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSegments = 64;       // ops/fused.py MAX_SEGMENTS
-constexpr int kMaxWidth = 160;         // 32 lanes x (4-byte word + 1 byte)
-constexpr int kMaxHeight = 1024;
+constexpr int kMaxWidth = 160;         // form 0: 32 lanes x (4-byte word + 1 byte)
+constexpr int kMaxSmem = 232448;       // a block's shared memory on Hopper
+constexpr long long kMaxPixels = 8421504;   // 255 H W < 2^31 (exact mafd)
+constexpr int kGroup = 4;              // form 1: rows a warp projects at once
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Segment {
-  const uint8_t* luma;        // (T, H, W) u8, 16-byte aligned
+  const uint8_t* luma;        // (T, H, W) u8, 16-byte aligned for form 0
   const float* carry_frame;   // (H, W) whole numbers in [0, 255]
   const float* carry_mafd;    // ()
   const uint8_t* has_prev;    // () bool
@@ -366,6 +384,197 @@ fingerprint_segments_kernel(const __grid_constant__ Params p) {
   }
 }
 
+// Form 1's predecessor of a pixel: a byte of frame t-1 (kCarry false), or
+// at a segment's frame 0 the carry frame's whole-number float.
+template <bool kCarry>
+__device__ __forceinline__ int pred_at(const void* pred, size_t q) {
+  return kCarry ? (__float2int_rn(__ldg(static_cast<const float*>(pred) + q)) & 0xff)
+                : (int)__ldg(static_cast<const uint8_t*>(pred) + q);
+}
+
+// sum |cur - pred| over a whole frame (exact in int32), summed over the
+// warp; unrolled so that many loads are in flight (frames come from L2).
+template <bool kCarry>
+__device__ __forceinline__ int frame_sad_general(const uint8_t* cur, const void* pred,
+                                                 int hw) {
+  int acc = 0;
+#pragma unroll 8
+  for (int q = threadIdx.x; q < hw; q += kThreads)
+    acc += abs((int)__ldg(cur + q) - pred_at<kCarry>(pred, q));
+  return __reduce_add_sync(kFull, acc);
+}
+
+// A lane's 8 sums of one row -> tmp[h][lane >> 2], summed over the warp:
+// reduce-scatter over offsets 16, 8, 4 (selects keep the lane's half),
+// then sums over offsets 2, 1.
+__device__ __forceinline__ float row_tree(const float (&a)[kHash], int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float v[4], u[2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    v[q] = (b4 ? a[q + 4] : a[q]) + __shfl_xor_sync(kFull, b4 ? a[q] : a[q + 4], 16);
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    u[q] = (b3 ? v[q + 2] : v[q]) + __shfl_xor_sync(kFull, b3 ? v[q] : v[q + 2], 8);
+  float d = (b2 ? u[1] : u[0]) + __shfl_xor_sync(kFull, b2 ? u[0] : u[1], 4);
+  d += __shfl_xor_sync(kFull, d, 2);
+  d += __shfl_xor_sync(kFull, d, 1);
+  return d;
+}
+
+// One frame's share of form 1's work for a warp: sum |cur - pred| over its
+// rows and L · (X · Rᵀ) folded into low0 / low1 (lane 4m + j: low[2j][m],
+// low[2j + 1][m]). Warp w takes the row groups w, w + 8, ...; lane l the
+// columns l, l + 32, ..., unrolled so that the loads of several columns
+// are in flight at once (the frame comes from L2 or HBM).
+template <bool kCarry>
+__device__ __forceinline__ void project_frame(const uint8_t* cur, const void* pred,
+                                              const float* left, const float4* s_r,
+                                              int H, int W, int lane, int warp,
+                                              int& sad, float& low0, float& low1) {
+  const int j2 = 2 * (lane & 3);
+  for (int h0 = kGroup * warp; h0 < H; h0 += kGroup * kWarps) {
+    const int nr = min(kGroup, H - h0);
+    float a[kGroup][kHash];
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r)
+#pragma unroll
+      for (int q = 0; q < kHash; ++q) a[r][q] = 0.0f;
+    const size_t row0 = (size_t)h0 * W;
+#pragma unroll 4
+    for (int c = lane; c < W; c += 32) {
+      const float4 r0 = s_r[c], r1 = s_r[W + c];
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r) {
+        if (r < nr) {
+          const size_t q = row0 + (size_t)r * W + c;
+          const int x = __ldg(cur + q);
+          sad += abs(x - pred_at<kCarry>(pred, q));
+          const float xf = (float)x;
+          a[r][0] = fmaf(xf, r0.x, a[r][0]);
+          a[r][1] = fmaf(xf, r0.y, a[r][1]);
+          a[r][2] = fmaf(xf, r0.z, a[r][2]);
+          a[r][3] = fmaf(xf, r0.w, a[r][3]);
+          a[r][4] = fmaf(xf, r1.x, a[r][4]);
+          a[r][5] = fmaf(xf, r1.y, a[r][5]);
+          a[r][6] = fmaf(xf, r1.z, a[r][6]);
+          a[r][7] = fmaf(xf, r1.w, a[r][7]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      if (r < nr) {                     // the same for the whole warp
+        const float d = row_tree(a[r], lane);
+        const float* lcol = left + h0 + r;
+        low0 = fmaf(__ldg(lcol + (size_t)j2 * H), d, low0);
+        low1 = fmaf(__ldg(lcol + (size_t)(j2 + 1) * H), d, low1);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+fingerprint_general_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = p.H, W = p.W, T = p.T, hw = H * W;
+  float4* s_r = reinterpret_cast<float4*>(smem);              // R[0..3][c], R[4..7][c]
+  float* s_part = reinterpret_cast<float*>(s_r + 2 * W);      // (8 warps, 64)
+  float* s_low = s_part + kWarps * kBits;                     // (64,)
+  float* s_stat = s_low + kBits;                              // 2 per warp
+  int* s_sum = reinterpret_cast<int*>(s_stat + 2 * kWarps);   // 2 per warp
+
+  const long long n = p.frames;
+  const long long lo = n * blockIdx.x / gridDim.x;
+  const long long hi = n * (blockIdx.x + 1) / gridDim.x;
+  if (lo >= hi) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j2 = 2 * (lane & 3);
+
+  float* s_rf = reinterpret_cast<float*>(s_r);
+  for (int q = tid; q < kHash * W; q += kThreads) {           // right is (8, W)
+    const int r = q / W, c = q - r * W;
+    s_rf[((r >> 2) * W + c) * 4 + (r & 3)] = p.right[q];
+  }
+  int s = (int)(lo / T);
+  int t = (int)(lo - (long long)s * T);
+  const bool inside = t > 0;
+  bool fresh = p.seg[s].has_prev[0] == 0;
+  float carried = p.seg[s].carry_mafd[0];
+  __syncthreads();
+
+  float prev_m = 0.0f;                  // masked mafd of frame k-1
+  for (long long k = lo; k < hi; ++k) {
+    const int i = (int)(k - lo);
+    if (i > 0 && ++t == T) {
+      t = 0;
+      ++s;
+      fresh = p.seg[s].has_prev[0] == 0;
+      carried = p.seg[s].carry_mafd[0];
+    }
+    const uint8_t* cur = p.seg[s].luma + (size_t)t * hw;
+    const bool first_inside = i == 0 && inside;
+    if (first_inside) {                 // frame lo - 1 against lo - 2 or the carry
+      const int acc = t == 1
+          ? frame_sad_general<true>(cur - hw, p.seg[s].carry_frame, hw)
+          : frame_sad_general<false>(cur - hw, cur - 2 * (size_t)hw, hw);
+      if (lane == 0) s_sum[kWarps + warp] = acc;
+    }
+    // Warp w takes the row groups w, w + 8, ...; lane 4m + j sums low[2j][m]
+    // and low[2j + 1][m] over their rows, in row order.
+    int sad = 0;
+    float low0 = 0.0f, low1 = 0.0f;
+    if (t == 0)
+      project_frame<true>(cur, p.seg[s].carry_frame, p.left, s_r, H, W, lane,
+                          warp, sad, low0, low1);
+    else
+      project_frame<false>(cur, cur - hw, p.left, s_r, H, W, lane, warp, sad,
+                           low0, low1);
+    sad = __reduce_add_sync(kFull, sad);
+    if (lane == 0) s_sum[warp] = sad;
+    s_part[warp * kBits + j2 * kHash + (lane >> 2)] = low0;
+    s_part[warp * kBits + (j2 + 1) * kHash + (lane >> 2)] = low1;
+    __syncthreads();
+
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += s_sum[w];
+    if (first_inside) {                 // frame lo - 1's masked mafd
+      int total_pred = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) total_pred += s_sum[kWarps + w];
+      prev_m = (t == 1 && fresh) ? 0.0f : (float)total_pred / (float)hw;
+    }
+    const bool start = t == 0 && fresh;
+    const float m = start ? 0.0f : (float)total / (float)hw;
+
+    if (tid < kBits) {                  // the warps' sums, in warp order
+      float v = s_part[tid];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += s_part[w * kBits + tid];
+      s_low[tid] = v;
+    }
+    __syncthreads();
+    median_threshold_pack(s_low, s_stat, p.fps + 2 * k);
+    if (tid == 0) {
+      const float pm = t == 0 ? carried : prev_m;
+      float sc = fminf(m, fabsf(m - pm)) / 100.0f;
+      sc = fminf(fmaxf(sc, 0.0f), 1.0f);
+      p.scores[k] = start ? 0.0f : sc;
+    }
+    if (t == p.seg[s].valid_t - 1) {
+      float* dst = p.new_frame + (size_t)s * hw;
+      for (int q = tid; q < hw; q += kThreads) dst[q] = (float)__ldg(cur + q);
+      if (tid == 0) {
+        p.new_mafd[s] = m;
+        p.new_has_prev[s] = 1;
+      }
+    }
+    prev_m = m;
+    __syncthreads();                    // s_sum and s_part are free again
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 median_pack_kernel(const float* __restrict__ low,   // (N, 64)
                    int32_t* __restrict__ out) {     // (N, 2)
@@ -377,42 +586,51 @@ median_pack_kernel(const float* __restrict__ low,   // (N, 64)
   median_threshold_pack(s_low, s_stat, out + (size_t)blockIdx.x * 2);
 }
 
-size_t smem_bytes(int H, int W) {
-  return (size_t)3 * H * W
-       + sizeof(float) * (kHash * H + kWarps * kBits + kBits + 2 * kWarps)
-       + sizeof(int) * 2 * kWarps;
+size_t smem_bytes(int form, int H, int W) {
+  const size_t common = sizeof(float) * (kWarps * kBits + kBits + 2 * kWarps)
+                      + sizeof(int) * 2 * kWarps;
+  return form == 0 ? (size_t)3 * H * W + sizeof(float) * kHash * H + common
+                   : sizeof(float) * kHash * W + common;
 }
 
-// CTAs of the segments kernel resident on the whole card, per device.
-// The largest dynamic shared memory opted into is kept per device, so a
-// later call with a smaller frame never lowers it under an earlier one.
-int resident_ctas(size_t smem, int* out) {
-  static int cached_smem[16], cached_ctas[16], opted_in[16];
+// Whether form ``form`` takes (H, W) (ops/fused.py k1_form decides).
+bool form_takes(int form, int H, int W) {
+  if (H < 1 || W < 1 || (long long)H * W > kMaxPixels) return false;
+  if (smem_bytes(form, H, W) > (size_t)kMaxSmem) return false;
+  return form == 1 || (form == 0 && W >= 4 && W <= kMaxWidth && W % 4 == 0 &&
+                       (H * W) % 16 == 0);
+}
+
+// CTAs of a form's kernel resident on the whole card, per device. The
+// largest dynamic shared memory opted into is kept per device and form, so
+// a later call with a smaller frame never lowers it under an earlier one.
+int resident_ctas(int form, size_t smem, int* out) {
+  static int cached_smem[2][16], cached_ctas[2][16], opted_in[2][16];
+  const void* fn = form == 0 ? (const void*)fingerprint_segments_kernel
+                             : (const void*)fingerprint_general_kernel;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 16 && cached_smem[dev] == (int)smem && cached_ctas[dev] > 0) {
-    *out = cached_ctas[dev];
+  if (dev < 16 && cached_smem[form][dev] == (int)smem && cached_ctas[form][dev] > 0) {
+    *out = cached_ctas[form][dev];
     return 0;
   }
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  if (smem > 48 * 1024 && (dev >= 16 || (int)smem > opted_in[dev])) {
-    e = cudaFuncSetAttribute((const void*)fingerprint_segments_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (smem > 48 * 1024 && (dev >= 16 || (int)smem > opted_in[form][dev])) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
-    if (dev < 16) opted_in[dev] = (int)smem;
+    if (dev < 16) opted_in[form][dev] = (int)smem;
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fingerprint_segments_kernel, kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *out = sms * per_sm;
   if (dev < 16) {
-    cached_ctas[dev] = *out;
-    cached_smem[dev] = (int)smem;
+    cached_ctas[form][dev] = *out;
+    cached_smem[form][dev] = (int)smem;
   }
   return 0;
 }
@@ -425,16 +643,17 @@ const char* tvz_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// One launch over S segments of T frames. ``table`` is a host array of
-// 7 + 5 S int64: the left and right operators, then the outputs (allocated
-// by the caller): scores (S*T,) f32, fps (S*T, 2) i32, new_frame (S, H, W)
-// f32, new_mafd (S,) f32, new_has_prev (S,) u8; then per segment the luma
-// pointers, carry-frame pointers, carry-mafd pointers, has-prev pointers
-// and valid_t, S of each.
-int tvz_fingerprint_segments(int S, int T, int H, int W,
+// One launch over S segments of T frames, by form 0 or 1 (see the header).
+// ``table`` is a host array of 7 + 5 S int64: the left and right
+// operators, then the outputs (allocated by the caller): scores (S*T,)
+// f32, fps (S*T, 2) i32, new_frame (S, H, W) f32, new_mafd (S,) f32,
+// new_has_prev (S,) u8; then per segment the luma pointers, carry-frame
+// pointers, carry-mafd pointers, has-prev pointers and valid_t, S of each.
+// Form 0 needs the luma and carry-frame pointers 16-byte aligned.
+int tvz_fingerprint_segments(int form, int S, int T, int H, int W,
                              const long long* table, void* stream) {
-  if (S < 1 || S > kMaxSegments || T < 1 || H < 1 || H > kMaxHeight ||
-      W < 4 || W > kMaxWidth || W % 4 || (H * W) % 16) {
+  if (S < 1 || S > kMaxSegments || T < 1 || (form != 0 && form != 1) ||
+      !form_takes(form, H, W)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -453,7 +672,7 @@ int tvz_fingerprint_segments(int S, int T, int H, int W,
     p.seg[s].has_prev = (const uint8_t*)segs[3 * S + s];
     p.seg[s].valid_t = (int)segs[4 * S + s];
     if (p.seg[s].valid_t < 1 || p.seg[s].valid_t > T ||
-        (segs[s] & 15) || (segs[S + s] & 15)) {
+        (form == 0 && ((segs[s] & 15) || (segs[S + s] & 15)))) {
       return (int)cudaErrorInvalidValue;
     }
   }
@@ -461,20 +680,27 @@ int tvz_fingerprint_segments(int S, int T, int H, int W,
   p.T = T;
   p.H = H;
   p.W = W;
-  const size_t smem = smem_bytes(H, W);
+  const size_t smem = smem_bytes(form, H, W);
   int ctas = 0;
-  const int rc = resident_ctas(smem, &ctas);
+  const int rc = resident_ctas(form, smem, &ctas);
   if (rc != 0) return rc;
   const long long grid = p.frames < ctas ? p.frames : ctas;
-  fingerprint_segments_kernel<<<(unsigned)grid, kThreads, smem,
-                                (cudaStream_t)stream>>>(p);
+  if (form == 0)
+    fingerprint_segments_kernel<<<(unsigned)grid, kThreads, smem,
+                                  (cudaStream_t)stream>>>(p);
+  else
+    fingerprint_general_kernel<<<(unsigned)grid, kThreads, smem,
+                                 (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// The grid a call over ``frames`` frames of (H, W) launches on this device.
-int tvz_fingerprint_grid(long long frames, int H, int W, int* out) {
+// The grid a call of form ``form`` over ``frames`` frames of (H, W)
+// launches on this device.
+int tvz_fingerprint_grid(int form, long long frames, int H, int W, int* out) {
+  if ((form != 0 && form != 1) || !form_takes(form, H, W))
+    return (int)cudaErrorInvalidValue;
   int ctas = 0;
-  const int rc = resident_ctas(smem_bytes(H, W), &ctas);
+  const int rc = resident_ctas(form, smem_bytes(form, H, W), &ctas);
   if (rc != 0) return rc;
   *out = (int)(frames < ctas ? frames : ctas);
   return 0;

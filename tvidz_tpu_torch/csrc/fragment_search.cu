@@ -1,6 +1,8 @@
-// K3 — fragment alignment on the int8 tensor cores: Q packed 64-bit query
+// K3 — fragment alignment on the int8 tensor cores: Q packed query
 // sequences against a bucket of V corpus sequences, best temporal offset of
-// each query in each video.
+// each query in each video. Rows of W 32-bit words: the design below is
+// written for the production W = 2 (64-bit pHash); any W from 1 to
+// kMaxWords (23) runs fragment_search_wide_kernel (phash256: W = 8).
 //
 // Replaces tvidz_tpu/ops/align_pallas.py::_fragment_kernel (wrappers
 // fragment_search_pallas_batch / fragment_search_pallas); the contract is
@@ -43,7 +45,7 @@
 //   96 at once only three fit, and the kernel ran slower). Computing
 //   the 64 x 192 block where the band needs 64 x 128 spends a third more
 //   products; the tensor cores have that headroom.
-// - The threshold: hamming <= thr  <=>  dot >= 64 - 2 thr. wgmma starts its
+// - The threshold: hamming <= thr  <=>  dot >= 32 W - 2 thr. wgmma starts its
 //   accumulators at zero for free (a preset start would cost a move per
 //   accumulator), so the gate is a DPX three-way max over a piece's 32
 //   accumulators (half an instruction a pair) compared once with
@@ -369,6 +371,267 @@ fragment_search_kernel(const uint32_t* __restrict__ qs,
   }
 }
 
+// -- any W: fragment_search_wide_kernel ---------------------------------------
+//
+// The same design at rows of W words (phash256: W = 8): the ring's rows
+// are 32 W bytes (SBO = 256 W; 64 KB at W = 8, so two CTAs an SM instead
+// of six), packed rows are staged by 4-byte cp.async, and a piece takes W
+// k32 steps. FW = 8 (phash256) keeps a tile's query A fragments, all eight
+// k-steps, in registers for its three pieces, one wgmma group a piece; any
+// other W (FW = 0, W a launch parameter) builds them from the staged query
+// rows kGroupW k-steps at a time, a group and a wait each. Either way a
+// tile's staged rows stay in shared memory for its three pieces (three
+// stage buffers, where W = 2 needs two).
+
+constexpr int kGroupW = 4;              // k-steps per wgmma group (W != 2)
+constexpr int kMaxSmem = 232448;        // a block's shared memory on Hopper
+constexpr int kStaticSmemWide = 1024;   // s_cnt, s_whole, s_pm1, s_warp
+// The widest rows: the ring and three stage buffers in shared memory.
+constexpr int kMaxWords = (kMaxSmem - kStaticSmemWide) / (kRing * 32 + 3 * 2 * kTileT * 4);
+
+__host__ __device__ __forceinline__ size_t wide_smem(int W) {
+  return (size_t)kRing * 32 * W + (size_t)3 * 2 * kTileT * 4 * W;
+}
+
+// Byte offset of (corpus row j, bit k) in a ring of 32 W-byte rows.
+__device__ __forceinline__ int ring_offset_w(int j, int k, int sbo) {
+  return ((j >> 3) & (kRing / 8 - 1)) * sbo + (k >> 4) * 128 + (j & 7) * 16 + (k & 15);
+}
+
+__device__ __forceinline__ uint64_t smem_desc_w(unsigned addr, unsigned sbo) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+template <int FW>
+__global__ void __launch_bounds__(kThreads, 2)
+fragment_search_wide_kernel(const uint32_t* __restrict__ qs,
+                            const int32_t* __restrict__ q_lens, int Tq_pad,
+                            const uint32_t* __restrict__ corpus,
+                            const int32_t* __restrict__ lens, int V, int Tc,
+                            int Wrt, int thr, int bands,
+                            unsigned long long* __restrict__ keys) {
+  constexpr int kG = FW > 0 ? FW : kGroupW;     // k-steps per wgmma group
+  const int W = FW > 0 ? FW : Wrt;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* s_c = reinterpret_cast<int8_t*>(smem);                     // kRing x 32 W
+  uint32_t* s_stage = reinterpret_cast<uint32_t*>(smem + kRing * 32 * W);
+  __shared__ int s_cnt[kBand];
+  __shared__ int s_whole[kThreads / 32][kPieces];
+  __shared__ int s_pm1[16];
+  __shared__ unsigned long long s_warp[kBand / 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qi = blockIdx.y;
+  const int v = blockIdx.x / bands;
+  const int d0 = (blockIdx.x % bands) * kBand;
+  const int o0 = d0 - (Tq_pad - 1);         // the band's first offset
+  const int q_len = min(max(q_lens[qi], 0), Tq_pad);
+  const int c_len = min(max(lens[v], 0), Tc);
+  const uint32_t* qrow = qs + (size_t)qi * Tq_pad * W;
+  const uint32_t* crow = corpus + (size_t)v * Tc * W;
+
+  const int t_begin = max(0, -(o0 + kBand - 1));
+  const int t_end = min(q_len, c_len - o0);
+  if (t_begin >= t_end) return;             // the whole CTA: nothing to count
+
+  s_cnt[tid] = 0;                           // kThreads == kBand
+  if (tid < kThreads / 32 * kPieces) (&s_whole[0][0])[tid] = 0;
+  if (tid < 16) s_pm1[tid] = pm1_entry(tid);
+  const int thr_dot = 32 * W - 2 * thr;     // a match: dot >= thr_dot
+  const unsigned sbo = 256u * W;
+  const unsigned c_addr = (unsigned)__cvta_generic_to_shared(s_c);
+  // Stage buffer b: its 64 window rows (which 0) and 64 query rows (1).
+  auto staged = [&](int b, int which, int r) {
+    return s_stage + ((size_t)(b * 2 + which) * kTileT + r) * W;
+  };
+
+  // Words w0 .. w1-1 of window row j (words at wp) into the ring, zero
+  // outside the video; a word's 8 parts at once, several words' loads in
+  // flight.
+  auto put = [&](int j, const uint32_t* wp, int w0, int w1) {
+    const bool ok = j >= 0 && j < c_len;
+#pragma unroll 4
+    for (int w = w0; w < w1; ++w) {
+      const uint32_t word = ok ? wp[w] : 0u;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        *reinterpret_cast<int*>(s_c + ring_offset_w(j, 32 * w + 4 * k, sbo)) =
+            ok ? s_pm1[nibble_index(word, k)] : 0;
+    }
+  };
+  // Tile at t0 into stage buffer b by cp.async: its last 64 window rows
+  // and its 64 query rows.
+  auto stage = [&](int t0, int b) {
+    for (int i = tid; i < kTileT * W; i += kThreads) {
+      const int r = i / W, w = i - r * W;
+      const int j = t0 + o0 + kWin - kTileT + r, t = t0 + r;
+      if (j >= 0 && j < c_len) cp_async4(staged(b, 0, r) + w, crow + (size_t)j * W + w);
+      if (t >= 0 && t < q_len) cp_async4(staged(b, 1, r) + w, qrow + (size_t)t * W + w);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // Stage buffer b's 64 new window rows into the ring, two threads a row.
+  auto take = [&](int b, int t0) {
+    const int r = tid >> 1, half = (W + 1) / 2;
+    put(t0 + o0 + kWin - kTileT + r, staged(b, 0, r), (tid & 1) * half,
+        (tid & 1) ? W : half);
+  };
+
+  const int t_first = t_begin - (((t_begin + o0) % 64) + 64) % 64;
+  __syncthreads();                          // the table is set
+  {
+    // The first window's rows before the staged ones, one a thread.
+    const int j = t_first + o0 + tid;       // kWin - kTileT == kThreads rows
+    put(j, (j >= 0 && j < c_len) ? crow + (size_t)j * W : crow, 0, W);
+  }
+  stage(t_first, 0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  take(0, t_first);
+  if (t_first + kTileT < t_end) stage(t_first + kTileT, 1);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  int b = 0;                                // the tile's stage buffer
+  for (int t0 = t_first; t0 < t_end; t0 += kTileT, b = b == 2 ? 0 : b + 1) {
+    const int j0 = t0 + o0;                  // window row 0; a multiple of 64
+    const bool next = t0 + kTileT < t_end;
+    const int r_a = 16 * warp + g, t_a = t0 + r_a, t_b = t_a + 8;
+    const bool ok_a = t_a >= 0 && t_a < q_len, ok_b = t_b >= 0 && t_b < q_len;
+    const uint32_t* qa = staged(b, 1, r_a);
+    const uint32_t* qb = staged(b, 1, r_a + 8);
+    // A fragments of k-steps w0 .. w0 + kG - 1: query rows t_a and t_b,
+    // zero outside [0, q_len).
+    int a[kG][4];
+    auto build = [&](int w0) {
+#pragma unroll
+      for (int s = 0; s < kG; ++s) {
+        const int w = w0 + s < W ? w0 + s : w0;
+        const uint32_t wa = qa[w], wb = qb[w];
+        a[s][0] = ok_a ? s_pm1[nibble_index(wa, t4)] : 0;
+        a[s][1] = ok_b ? s_pm1[nibble_index(wb, t4)] : 0;
+        a[s][2] = ok_a ? s_pm1[nibble_index(wa, 4 + t4)] : 0;
+        a[s][3] = ok_b ? s_pm1[nibble_index(wb, 4 + t4)] : 0;
+      }
+    };
+    if (FW > 0) build(0);                    // every k-step, once a tile
+    for (int p = 0; p < kPieces; ++p) {
+      int acc[32];
+      const unsigned base = c_addr + (((j0 >> 3) + 8 * p) & (kRing / 8 - 1)) * sbo;
+      for (int w0 = 0; w0 < W; w0 += kG) {
+        if (FW == 0) build(w0);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int s = 0; s < kG; ++s)
+          if (w0 + s < W)                    // the same in every thread
+            wgmma_m64n64k32(acc, a[s], smem_desc_w(base + 256 * (w0 + s), sbo),
+                            w0 + s > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        if (p == 0 && w0 == 0 && next) {
+          asm volatile("cp.async.wait_all;\n" ::: "memory");
+          __syncthreads();                   // the next tile's stage landed
+          take(b == 2 ? 0 : b + 1, t0 + kTileT);
+          if (t0 + 2 * kTileT < t_end) stage(t0 + 2 * kTileT, b == 0 ? 2 : b - 1);
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+#pragma unroll
+        for (int s = 0; s < kG; ++s)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[s][i])::"memory");
+      }
+
+      // The piece's largest dot, over four independent chains.
+      int mx[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i] = acc[i];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2)
+        mx[(i / 2) & 3] = __vimax3_s32(mx[(i / 2) & 3], acc[i], acc[i + 1]);
+      const int m = max(__vimax3_s32(mx[0], mx[1], mx[2]), mx[3]);
+      if (__any_sync(0xffffffffu, m >= thr_dot)) {
+        int mn[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mn[i] = acc[i];
+#pragma unroll
+        for (int i = 0; i < 32; i += 2)
+          mn[(i / 2) & 3] = __vimin3_s32(mn[(i / 2) & 3], acc[i], acc[i + 1]);
+        if (__all_sync(0xffffffffu, min(__vimin3_s32(mn[0], mn[1], mn[2]), mn[3]) >= thr_dot)) {
+          if (t0 + 16 * warp >= 0 && t0 + 16 * warp + 16 <= q_len &&
+              j0 + 64 * p >= 0 && j0 + 64 * p + 64 <= c_len) {
+            if (lane == 0) ++s_whole[warp][p];
+            continue;
+          }
+          const int r_lo = max(16 * warp, -t0), r_hi = min(16 * warp + 16, q_len - t0);
+          const int c_lo = max(64 * p, -j0), c_hi = min(64 * p + 64, c_len - j0);
+          const int d_hi = min(kBand - 1, c_hi - 1 - r_lo);
+          for (int dd = max(0, c_lo - r_hi + 1) + lane; dd <= d_hi; dd += 32) {
+            const int n = min(r_hi, c_hi - dd) - max(r_lo, c_lo - dd);
+            if (n > 0) atomicAdd(&s_cnt[dd], n);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int tl = 16 * warp + g + 8 * (e >> 1);
+              const int jj = 64 * p + 8 * c + 2 * t4 + (e & 1);
+              const int dd = jj - tl, t = t0 + tl, j = j0 + jj;
+              if (acc[4 * c + e] >= thr_dot && dd >= 0 && dd < kBand && t >= 0 &&
+                  t < q_len && j >= 0 && j < c_len)
+                atomicAdd(&s_cnt[dd], 1);
+            }
+        }
+      }
+    }
+    if (next) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();                       // the next window is in the ring
+    }
+  }
+  // The whole blocks: each adds its trapezoid (as fragment_search_kernel).
+  __syncwarp();
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) {
+    const int n = s_whole[warp][p];
+    if (n == 0) continue;
+    const int base = 64 * p - 16 * warp;
+    for (int dd = max(0, base - 15) + lane; dd <= min(kBand - 1, base + 63); dd += 32) {
+      const int x = dd - base;
+      atomicAdd(&s_cnt[dd], n * (min(16, 64 - x) - max(0, -x)));
+    }
+  }
+  __syncthreads();
+
+  const int c = s_cnt[tid];
+  unsigned long long key =
+      c > 0 ? ((unsigned long long)c << 32) | (unsigned long long)(0x7fffffff - (d0 + tid))
+            : 0ull;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, s);
+    key = other > key ? other : key;
+  }
+  if (lane == 0) s_warp[warp] = key;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long best = s_warp[0];
+#pragma unroll
+    for (int w = 1; w < kBand / 32; ++w) best = s_warp[w] > best ? s_warp[w] : best;
+    if (best > kZeroKey) atomicMax(&keys[(size_t)qi * V + v], best);
+  }
+}
+
 __global__ void unpack_keys_kernel(const unsigned long long* __restrict__ keys,
                                    int n, int Tq_pad,
                                    int32_t* __restrict__ offs,
@@ -390,32 +653,54 @@ const char* tvz_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// qs (Q, Tq_pad) and corpus (V, Tc) 64-bit rows; q_lens (Q,), lens (V,)
-// int32; keys (Q, V) uint64 scratch; offs, scores (Q, V) int32.
+// qs (Q, Tq_pad, W) and corpus (V, Tc, W) int32 rows, W in [1, kMaxWords]
+// (23); q_lens (Q,), lens (V,) int32; keys (Q, V) uint64 scratch; offs,
+// scores (Q, V) int32.
 int tvz_fragment_search(const void* qs, const void* q_lens, int Q, int Tq_pad,
                         const void* corpus, const void* lens, int V, int Tc,
-                        int thr, void* keys, void* offs, void* scores,
+                        int W, int thr, void* keys, void* offs, void* scores,
                         void* stream) {
-  if (Q <= 0 || Q > 65535 || Tq_pad <= 0 || V <= 0 || Tc <= 0)
+  if (Q <= 0 || Q > 65535 || Tq_pad <= 0 || V <= 0 || Tc <= 0 || W < 1 ||
+      W > kMaxWords)
     return (int)cudaErrorInvalidValue;
   const long long nd = (long long)Tq_pad + Tc - 1;
   const long long bands = (nd + kBand - 1) / kBand;
   if (nd >= 0x7fffffffll - 2 * kTileT || bands * V >= 0x7fffffffll ||
       (long long)Q * V >= 0x7fffffffll)
     return (int)cudaErrorInvalidValue;
-  // hamming is in [0, 64]: any thr below 0 matches nothing, any above 64
-  // everything, and the clamp keeps 64 - 2 thr in range.
-  thr = thr < -1 ? -1 : (thr > 64 ? 64 : thr);
+  // hamming is in [0, 32 W]: any thr below 0 matches nothing, any above
+  // 32 W everything, and the clamp keeps 32 W - 2 thr in range.
+  thr = thr < -1 ? -1 : (thr > 32 * W ? 32 * W : thr);
   cudaStream_t s = (cudaStream_t)stream;
   const int n = Q * V;
   init_keys_kernel<<<(n + 255) / 256, 256, 0, s>>>((unsigned long long*)keys, n);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)(bands * V), (unsigned)Q);
-  fragment_search_kernel<<<grid, kThreads, 0, s>>>(
-      (const uint32_t*)qs, (const int32_t*)q_lens, Tq_pad,
-      (const uint32_t*)corpus, (const int32_t*)lens, V, Tc, thr, (int)bands,
-      (unsigned long long*)keys);
+  if (W == 2) {
+    fragment_search_kernel<<<grid, kThreads, 0, s>>>(
+        (const uint32_t*)qs, (const int32_t*)q_lens, Tq_pad,
+        (const uint32_t*)corpus, (const int32_t*)lens, V, Tc, thr, (int)bands,
+        (unsigned long long*)keys);
+  } else {
+    const size_t smem = wide_smem(W);
+    const void* fn = W == 8 ? (const void*)fragment_search_wide_kernel<8>
+                            : (const void*)fragment_search_wide_kernel<0>;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (W == 8)
+      fragment_search_wide_kernel<8><<<grid, kThreads, smem, s>>>(
+          (const uint32_t*)qs, (const int32_t*)q_lens, Tq_pad,
+          (const uint32_t*)corpus, (const int32_t*)lens, V, Tc, W, thr,
+          (int)bands, (unsigned long long*)keys);
+    else
+      fragment_search_wide_kernel<0><<<grid, kThreads, smem, s>>>(
+          (const uint32_t*)qs, (const int32_t*)q_lens, Tq_pad,
+          (const uint32_t*)corpus, (const int32_t*)lens, V, Tc, W, thr,
+          (int)bands, (unsigned long long*)keys);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   unpack_keys_kernel<<<(n + 255) / 256, 256, 0, s>>>(

@@ -1,16 +1,21 @@
 """The streaming video-fingerprinting model, on PyTorch.
 
 Port of ``tvidz_tpu/models/fingerprint.py``. ``FingerprintModel.forward``
-maps a (T, H, W) luma block and a carry to (scene scores, packed pHash,
-new carry) through ``ops/fused.fingerprint_block`` (kernel K1 on CUDA).
+maps a (T, H, W) luma block and a carry to (scene scores, packed hashes,
+new carry) through ``ops/fused.fingerprint_block``: kernel K1 on CUDA for
+the 64-bit DCT pHash (the default), and for every other configuration of
+``Config.hash`` (``ahash``, ``dhash``, ``phash256``, ``phash`` at another
+``hash_size``) the family's plain-torch composition, as the reference
+computes those in XLA. The word count follows the configuration
+(``config.hash.words``: 8 for phash256).
 ``process_block`` is the one per-block path every surface shares: pad a
 short block with its last frame and pass ``valid_t``, score through the
 ``NativeSceneScorer`` policy, cut at the threshold with 6-decimal rounding.
 With a ``SharedBlockDispatcher`` attached (the service does), its device
 step goes through the dispatcher's batched ``forward_streams`` pass instead.
 
-Not ported yet (ROADMAP queue A): the coefficient-shipping payload
-(``ship_dct_coeffs``), the other hash families and ``forward_batch``.
+Not ported yet (ROADMAP queue A, item 2): the coefficient-shipping payload
+(``ship_dct_coeffs``) and ``forward_batch``; both raise.
 """
 
 from __future__ import annotations
@@ -29,11 +34,12 @@ from tvidz_tpu_torch.ops.fused import (
     fingerprint_block,
     fingerprint_blocks_batched,
     initial_fingerprint_carry,
+    uses_k1,
 )
 from tvidz_tpu_torch.ops.phash import hash_operators, words_to_numpy
 from tvidz_tpu_torch.ops.scene import NativeSceneScorer
 
-_LATER = "not ported yet (ROADMAP.md queue A, item 3)"
+_LATER = "not ported yet (ROADMAP.md queue A, item 2)"
 
 
 class FingerprintModel:
@@ -42,7 +48,8 @@ class FingerprintModel:
     forward(luma_block, carry) -> (scores, fingerprints, carry')
       luma_block:   (T, H, W) uint8 luma at the model's scene geometry
       scores:       (T,) float32 FFmpeg-parity scene scores
-      fingerprints: (T, words) int32 bit-views of the packed pHash words
+      fingerprints: (T, words) int32 bit-views of the packed hash words
+                    (words = config.hash.words)
     """
 
     def __init__(self, config: Optional[Config] = None, device=None):
@@ -55,18 +62,20 @@ class FingerprintModel:
         self.dct_size = self.config.hash.dct_size
         self.hash_size = self.config.hash.hash_size
         self.algorithm = self.config.hash.algorithm
-        if self.algorithm != "phash":
-            raise NotImplementedError(
-                f"hash algorithm {self.algorithm!r}: {_LATER}")
+        self.words = self.config.hash.words
         if getattr(p, "ship_dct_coeffs", False):
             raise NotImplementedError(f"ship_dct_coeffs: {_LATER}")
         self.ship_coeffs = False
         # Optional SharedBlockDispatcher (pipeline/dispatcher.py): when set,
         # process_block's device step rides its shared batched pass.
         self.dispatcher = None
-        self.left, self.right = hash_operators(
+        # K1's operators (the 64-bit pHash); other families build their own.
+        self.k1 = uses_k1(self.algorithm, self.hash_size)
+        self.left, self.right = (hash_operators(
             self.height, self.width, self.device, self.dct_size,
-            self.hash_size)
+            self.hash_size) if self.k1 else (None, None))
+        self._family = dict(algorithm=self.algorithm, dct_size=self.dct_size,
+                            hash_size=self.hash_size)
 
     # -- single-stream API ----------------------------------------------------
 
@@ -76,7 +85,7 @@ class FingerprintModel:
     def forward(self, luma_block: torch.Tensor, carry: FingerprintCarry,
                 valid_t: Optional[int] = None):
         return fingerprint_block(luma_block, carry, self.left, self.right,
-                                 valid_t=valid_t)
+                                 valid_t=valid_t, **self._family)
 
     def example_inputs(self) -> Tuple[torch.Tensor, FingerprintCarry]:
         luma = torch.zeros((self.block_frames, self.height, self.width),
@@ -89,11 +98,12 @@ class FingerprintModel:
     def forward_streams(self, lumas, carries, valid_ts):
         """K independent streams' (T, H, W) blocks in one pass: ((K, T)
         scores, (K, T, words) int32 fps, tuple of K carries), through
-        ``fingerprint_blocks_batched`` (one K1 launch on CUDA), so stream
-        k's results equal a lone ``forward`` of it bit for bit.
+        ``fingerprint_blocks_batched``: for the 64-bit pHash one K1 launch
+        on CUDA, stream k's results equal to a lone ``forward`` of it bit
+        for bit; for another family one batched plain-torch pass.
         ``valid_ts``: each block's real frame count (T for a full block)."""
         return fingerprint_blocks_batched(lumas, carries, valid_ts, self.left,
-                                          self.right)
+                                          self.right, **self._family)
 
     def example_payload(self) -> torch.Tensor:
         """A zero (T, H, W) uint8 block at the model's dispatch shape (warm
@@ -111,8 +121,7 @@ class FingerprintModel:
         Returns (fps (t, W) np.uint32, new_carry, new_cuts, t)."""
         t = block.luma.shape[0]
         if t == 0:
-            return (np.zeros((0, self.config.hash.words), np.uint32),
-                    carry, [], 0)
+            return (np.zeros((0, self.words), np.uint32), carry, [], 0)
         bt = self.block_frames
         buf = np.asarray(block.luma)
         if t < bt:
@@ -158,13 +167,12 @@ class FingerprintModel:
                 block, carry, scorer, last_cut=cuts[-1] if cuts else None)
             fps_out.append(fps)
             cuts.extend(new_cuts)
-        words = self.config.hash.words
         return cuts, (np.concatenate(fps_out) if fps_out
-                      else np.zeros((0, words), np.uint32))
+                      else np.zeros((0, self.words), np.uint32))
 
     def analyze_path(self, path: str) -> Tuple[List[float], np.ndarray]:
         """Stream a video file block by block: (cut timestamps, packed fps).
-        Only the 8-byte-per-frame fingerprints accumulate."""
+        Only the 4·words-byte-per-frame fingerprints accumulate."""
         decoder = get_decoder(
             path, lowres=self.config.pipeline.decode_lowres,
             dct_dc=self.config.pipeline.decode_dct_dc)

@@ -15,8 +15,9 @@ argmax, reported as ``d - (Tq_pad - 1)``, so an all-zero row reports
 of its tree, ``align.py:72-85``, is not copied).
 
 ``fragment_search_batch`` / ``fragment_search`` launch kernel K3
-(``csrc/fragment_search.cu``, int8 ±1 products on the tensor cores) on CUDA
-tensors and run the plain versions
+(``csrc/fragment_search.cu``, int8 ±1 products on the tensor cores, rows of
+any W from 1 to ``K3_MAX_WORDS`` words: W = 2 for the 64-bit pHash, 8 for
+phash256) on CUDA tensors and run the plain versions
 (``fragment_search_batch_plain`` / ``fragment_core``) on CPU tensors; there
 is no fallback between the two. Fingerprints are int32 bit-views of the
 reference's uint32 words.
@@ -37,11 +38,14 @@ K3 = backend.register(backend.Kernel(
     "fragment_search",
     replaces="tvidz_tpu/ops/align_pallas.py:91 (_fragment_kernel)",
     entry_points={
-        "tvz_fragment_search": [_p, _p, _i, _i, _p, _p, _i, _i, _i,
+        "tvz_fragment_search": [_p, _p, _i, _i, _p, _p, _i, _i, _i, _i,
                                 _p, _p, _p, _p],
     },
 ))
 
+# The widest rows K3 takes (kMaxWords in its source): a 256-row ring of
+# 32·W-byte unpacked rows and three stage buffers in shared memory.
+K3_MAX_WORDS = 23
 # int32 elements per step of the plain versions (bounds their memory: the
 # Hamming matrix and the skewed match matrix of a group of videos).
 _PLAIN_ELEMS = 1 << 22
@@ -159,13 +163,12 @@ def _fragment_search_cuda(q_fps, q_lens, corpus, lens, thr):
     dev = q_fps.device
     qn, tq_pad, w = q_fps.shape
     v, tc, _ = corpus.shape
-    if w != 2:
-        raise NotImplementedError(
-            "the fragment-search kernel takes 64-bit fingerprints (2 words), "
-            f"got {w} words")
-    backend.require(q_fps, "queries", torch.int32, (qn, tq_pad, 2), dev)
+    if not 1 <= w <= K3_MAX_WORDS:
+        raise ValueError(f"the fragment-search kernel takes rows of "
+                         f"1..{K3_MAX_WORDS} words (its shared memory), got {w}")
+    backend.require(q_fps, "queries", torch.int32, (qn, tq_pad, w), dev)
     backend.require(q_lens, "query lengths", torch.int32, (qn,), dev)
-    backend.require(corpus, "corpus", torch.int32, (v, tc, 2), dev)
+    backend.require(corpus, "corpus", torch.int32, (v, tc, w), dev)
     backend.require(lens, "corpus lengths", torch.int32, (v,), dev)
     if not 1 <= qn <= 65535 or tq_pad + tc >= 2 ** 31 or qn * v >= 2 ** 31:
         raise ValueError(f"fragment search shape out of range: Q={qn}, "
@@ -175,7 +178,7 @@ def _fragment_search_cuda(q_fps, q_lens, corpus, lens, thr):
     scores = torch.empty((qn, v), dtype=torch.int32, device=dev)
     p = backend.ptr
     K3.call("tvz_fragment_search", p(q_fps), p(q_lens), qn, tq_pad,
-            p(corpus), p(lens), v, tc, int(thr), p(keys), p(offs), p(scores),
+            p(corpus), p(lens), v, tc, w, int(thr), p(keys), p(offs), p(scores),
             backend.stream_ptr(dev))
     K3.launches += 1
     return offs, scores

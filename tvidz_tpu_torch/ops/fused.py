@@ -17,6 +17,17 @@ gives what bounds it on the H100 and how its design answers that):
 
 On CPU tensors they run the plain PyTorch versions (``*_plain``). There is
 no fallback between the two: a CUDA tensor the kernel cannot take raises.
+
+K1 computes the DCT pHash at hash_size 8 (the Pallas kernel is 64-bit only,
+``fused_pallas.py:165``). Every other fingerprint configuration — ahash,
+dhash, phash256, phash at another hash_size — is the reference's other
+branch (``tvidz_tpu/ops/fused.py:56-63``, ``:110-117``), which no Pallas
+kernel computes either: scene scores from ``ops/scene`` and the family's
+hashes from ``ops/hashes``, in plain torch on any device
+(``fingerprint_family_block``, ``fingerprint_family_blocks_batched``).
+``fingerprint_block`` and ``fingerprint_blocks_batched`` take the
+configuration (``algorithm``, ``dct_size``, ``hash_size``) and go one way
+or the other by it alone (``uses_k1``).
 """
 
 from __future__ import annotations
@@ -28,11 +39,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from tvidz_tpu_torch import backend
+from tvidz_tpu_torch.ops import hashes
 from tvidz_tpu_torch.ops.phash import hash_operators, phash_batched
 from tvidz_tpu_torch.ops.scene import (
     SceneCarry,
     initial_scene_carry,
     scene_scores_block,
+    scene_scores_blocks,
 )
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
@@ -41,8 +54,8 @@ K1 = backend.register(backend.Kernel(
     "fingerprint_block",
     replaces="tvidz_tpu/ops/fused_pallas.py:74 (_fused_kernel)",
     entry_points={
-        "tvz_fingerprint_segments": [_i, _i, _i, _i, _i64p, _p],
-        "tvz_fingerprint_grid": [ctypes.c_longlong, _i, _i,
+        "tvz_fingerprint_segments": [_i, _i, _i, _i, _i, _i64p, _p],
+        "tvz_fingerprint_grid": [_i, ctypes.c_longlong, _i, _i,
                                  ctypes.POINTER(ctypes.c_int)],
         "tvz_median_pack": [_p, _i, _p, _p],
     },
@@ -50,6 +63,12 @@ K1 = backend.register(backend.Kernel(
 # Segments one launch takes (kMaxSegments in the source): the per-segment
 # pointers and valid_t ride in the launch parameters.
 MAX_SEGMENTS = 64
+# K1's limits (the source's kMaxSmem, kMaxPixels): a block's shared memory
+# on Hopper, and 255 H W < 2^31 for the exact int32 mafd sum.
+_MAX_SMEM = 232448
+_MAX_PIXELS = 8421504
+# Shared memory both forms spend beside their frames or operators.
+_SMEM_COMMON = 4 * (8 * 64 + 64 + 16) + 4 * 16
 
 Result = Tuple[torch.Tensor, torch.Tensor, "FingerprintCarry"]
 
@@ -129,6 +148,25 @@ def _out_layout(s: int, t: int, h: int, w: int) -> Tuple[int, ...]:
     return (*out, off)
 
 
+def k1_form(height: int, width: int) -> int:
+    """Which of K1's two forms computes an (H, W) scene (``csrc/
+    fingerprint_block.cu``): 0, three whole frames in shared memory and five
+    columns a lane (W <= 160, a multiple of 4, H*W a multiple of 16, the
+    frames within a block's shared memory: the production 90x160); else 1,
+    frames read from global memory at any H, W and alignment. Raises where
+    neither fits: H*W above 8,421,504 pixels (the exact int32 mafd sum) or
+    W above 7,187 (Rᵀ in shared memory)."""
+    h, w = int(height), int(width)
+    if h < 1 or w < 1 or h * w > _MAX_PIXELS or 32 * w + _SMEM_COMMON > _MAX_SMEM:
+        raise ValueError(
+            f"the fingerprint-block kernel takes 1 <= H*W <= {_MAX_PIXELS} and "
+            f"W <= {(_MAX_SMEM - _SMEM_COMMON) // 32}; got {h}x{w}")
+    if (4 <= w <= 160 and w % 4 == 0 and (h * w) % 16 == 0
+            and 3 * h * w + 32 * h + _SMEM_COMMON <= _MAX_SMEM):
+        return 0
+    return 1
+
+
 def _launch(lumas: Sequence[torch.Tensor], carries: Sequence[FingerprintCarry],
             valid_ts: Sequence[Optional[int]], left: torch.Tensor,
             right: torch.Tensor, lone: bool = False):
@@ -145,12 +183,11 @@ def _launch(lumas: Sequence[torch.Tensor], carries: Sequence[FingerprintCarry],
         raise ValueError(f"luma must be (T, H, W) with T >= 1, got {tuple(x0.shape)}")
     t, h, w = x0.shape
     if left.shape[0] != 8:
-        raise NotImplementedError(
-            "the fingerprint-block kernel computes the 64-bit pHash only "
-            f"(hash_size 8), got hash_size {left.shape[0]}")
-    if w > 160 or w % 4 or (h * w) % 16:
-        raise ValueError(f"the fingerprint-block kernel takes W <= 160, a "
-                         f"multiple of 4, and H*W a multiple of 16; got {h}x{w}")
+        raise ValueError(
+            "the fingerprint-block kernel computes the 64-bit pHash "
+            f"(hash_size 8), got hash_size {left.shape[0]}: other families and "
+            "sizes take ops/fused.fingerprint_family_block")
+    form = k1_form(h, w)
     backend.require(left, "left operator", torch.float32, (8, h), dev)
     backend.require(right, "right operator", torch.float32, (8, w), dev)
     scs = [c.scene for c in carries]
@@ -162,7 +199,7 @@ def _launch(lumas: Sequence[torch.Tensor], carries: Sequence[FingerprintCarry],
     vts = [_check_valid_t(v, t) for v in valid_ts]
     xp = [x.data_ptr() for x in lumas]
     fp = [sc.prev_frame.data_ptr() for sc in scs]
-    if any(q % 16 for q in xp + fp):
+    if form == 0 and any(q % 16 for q in xp + fp):
         raise ValueError("luma and carry.prev_frame must be 16-byte aligned")
     o_sc, o_fp, o_fr, o_m, o_hp, n = _out_layout(s, t, h, w)
     buf = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -172,7 +209,7 @@ def _launch(lumas: Sequence[torch.Tensor], carries: Sequence[FingerprintCarry],
         base + 4 * o_fr, base + 4 * o_m, base + 4 * o_hp, *xp, *fp,
         *[sc.prev_mafd.data_ptr() for sc in scs],
         *[sc.has_prev.data_ptr() for sc in scs], *vts)
-    K1.call("tvz_fingerprint_segments", s, t, h, w, table,
+    K1.call("tvz_fingerprint_segments", form, s, t, h, w, table,
             backend.stream_ptr(dev))
     K1.launches += 1
     i32, b8 = buf.view(torch.int32), buf.view(torch.bool)
@@ -197,7 +234,8 @@ def fingerprint_grid(frames: int, height: int, width: int) -> int:
     """The number of CTAs K1 launches for ``frames`` frames of (H, W) on the
     current CUDA device (each walks a contiguous range of them)."""
     out = ctypes.c_int(0)
-    K1.call("tvz_fingerprint_grid", frames, height, width, ctypes.byref(out))
+    K1.call("tvz_fingerprint_grid", k1_form(height, width), frames, height,
+            width, ctypes.byref(out))
     return out.value
 
 
@@ -209,38 +247,105 @@ def _device_of(luma: torch.Tensor) -> str:
     return "cpu"
 
 
+def uses_k1(algorithm: str, hash_size: int) -> bool:
+    """Whether a fingerprint configuration's blocks go to K1 (on CUDA) and
+    its plain version: the DCT pHash at hash_size 8, any dct_size."""
+    return algorithm == "phash" and int(hash_size) == 8
+
+
+def family_hashes(luma: torch.Tensor, algorithm: str, dct_size: int = 32,
+                  hash_size: int = 8) -> torch.Tensor:
+    """(T, H, W) -> (T, words) int32 hashes of a family (``ops/hashes``);
+    ``phash`` honours ``dct_size`` and ``hash_size``, as the reference."""
+    if algorithm == "phash":
+        return hashes.phash_family(luma, dct_size, hash_size)
+    return hashes.get_hash_fn(algorithm)(luma)
+
+
+def fingerprint_family_block(luma: torch.Tensor, carry: FingerprintCarry,
+                             valid_t: Optional[int] = None, *, algorithm: str,
+                             dct_size: int = 32, hash_size: int = 8) -> Result:
+    """One block of a configuration K1 does not compute: ((T,) scores, (T,
+    words) int32 hashes, new carry), scene scores from
+    ``scene_scores_block`` and hashes from ``family_hashes``, plain torch on
+    the block's device."""
+    if luma.ndim != 3 or luma.shape[0] == 0:
+        raise ValueError(f"luma must be (T, H, W) with T >= 1, got {tuple(luma.shape)}")
+    _check_valid_t(valid_t, luma.shape[0])
+    x = luma.to(torch.float32)
+    scores, scene_carry = scene_scores_block(x, carry.scene, valid_t=valid_t)
+    return (scores, family_hashes(x, algorithm, dct_size, hash_size),
+            FingerprintCarry(scene=scene_carry))
+
+
+def fingerprint_family_blocks_batched(lumas, carries, valid_ts, *, algorithm: str,
+                                      dct_size: int = 32, hash_size: int = 8):
+    """K streams' blocks of such a configuration in one pass: scene scores
+    over the K streams at once (``scene_scores_blocks``), the hashes of all
+    K·T frames in one batch, as the reference's batched program."""
+    x = torch.stack(list(lumas)).to(torch.float32)
+    k, t, h, w = x.shape
+    for v in valid_ts:
+        _check_valid_t(v, t)
+    scores, scene = scene_scores_blocks(x, [c.scene for c in carries], valid_ts)
+    fps = family_hashes(x.reshape(k * t, h, w), algorithm, dct_size, hash_size)
+    return (scores, fps.reshape(k, t, -1),
+            tuple(FingerprintCarry(scene=c) for c in scene))
+
+
 def fingerprint_block(
-    luma: torch.Tensor, carry: FingerprintCarry, left: torch.Tensor,
-    right: torch.Tensor, valid_t: Optional[int] = None,
+    luma: torch.Tensor, carry: FingerprintCarry,
+    left: Optional[torch.Tensor] = None, right: Optional[torch.Tensor] = None,
+    valid_t: Optional[int] = None, *, algorithm: str = "phash",
+    dct_size: int = 32, hash_size: int = 8,
 ) -> Result:
     """(T, H, W) luma block -> ((T,) float32 scores, (T, words) int32 packed
     hashes, new carry). ``left``/``right`` are ``phash.hash_operators`` on
-    the block's device. ``valid_t``: the real frame count of a block padded
-    by repeating its last frame (the carry is taken at frame valid_t-1).
-    T may be any length, a whole stream included.
+    the block's device (built from ``dct_size`` when None). ``valid_t``: the
+    real frame count of a block padded by repeating its last frame (the
+    carry is taken at frame valid_t-1). T may be any length, a whole stream
+    included.
 
-    CUDA tensors go to kernel K1 (uint8 luma, 64-bit hash), one launch;
-    CPU tensors to ``fingerprint_block_plain``."""
+    The 64-bit pHash (``uses_k1``): CUDA tensors go to kernel K1 (uint8
+    luma), one launch; CPU tensors to ``fingerprint_block_plain``. Any other
+    configuration: ``fingerprint_family_block``."""
+    if not uses_k1(algorithm, hash_size):
+        return fingerprint_family_block(luma, carry, valid_t, algorithm=algorithm,
+                                        dct_size=dct_size, hash_size=hash_size)
+    if left is None or right is None:
+        left, right = hash_operators(luma.shape[1], luma.shape[2], luma.device,
+                                     dct_size)
     if _device_of(luma) == "cuda":
         return _launch([luma], [carry], [valid_t], left, right, lone=True)
     return fingerprint_block_plain(luma, carry, left, right, valid_t)
 
 
-def fingerprint_blocks_batched(lumas, carries, valid_ts, left: torch.Tensor,
-                               right: torch.Tensor):
+def fingerprint_blocks_batched(lumas, carries, valid_ts,
+                               left: Optional[torch.Tensor] = None,
+                               right: Optional[torch.Tensor] = None, *,
+                               algorithm: str = "phash", dct_size: int = 32,
+                               hash_size: int = 8):
     """K independent streams' (T, H, W) blocks (a sequence, or one (K, T, H,
     W) tensor) with their carries and real frame counts -> ((K, T) scores,
-    (K, T, words) fps, tuple of K new carries). Stream k's results equal a
-    lone ``fingerprint_block`` of it bit for bit.
+    (K, T, words) fps, tuple of K new carries).
 
-    On CUDA: one K1 launch per ``MAX_SEGMENTS`` streams (the blocks are not
-    stacked: each segment's pointer rides in the launch); on the CPU,
-    ``fingerprint_blocks_batched_plain``."""
+    The 64-bit pHash on CUDA: one K1 launch per ``MAX_SEGMENTS`` streams
+    (the blocks are not stacked: each segment's pointer rides in the
+    launch), stream k's results equal to a lone ``fingerprint_block`` of it
+    bit for bit; on the CPU, ``fingerprint_blocks_batched_plain``. Any other
+    configuration: ``fingerprint_family_blocks_batched``."""
     lumas = list(lumas)
     carries, valid_ts = list(carries), [int(v) for v in valid_ts]
     if not lumas or not len(lumas) == len(carries) == len(valid_ts):
         raise ValueError(f"{len(lumas)} blocks, {len(carries)} carries and "
                          f"{len(valid_ts)} valid_ts: need the same count >= 1")
+    if not uses_k1(algorithm, hash_size):
+        return fingerprint_family_blocks_batched(
+            lumas, carries, valid_ts, algorithm=algorithm, dct_size=dct_size,
+            hash_size=hash_size)
+    if left is None or right is None:
+        left, right = hash_operators(lumas[0].shape[1], lumas[0].shape[2],
+                                     lumas[0].device, dct_size)
     if _device_of(lumas[0]) == "cpu":
         return fingerprint_blocks_batched_plain(lumas, carries, valid_ts,
                                                 left, right)

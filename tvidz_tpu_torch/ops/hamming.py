@@ -25,13 +25,20 @@ and ``query_nearest`` modes, which won the race on the card against K2
 
 The corpus layout is row-major (N, W) — the host mirror's own layout. The
 reference's word-major (W, N) device layout served TPU lanes; the kernels
-read one 8-byte row per thread instead.
+read rows of 4·W bytes instead. Both kernels take any word width W (the
+64-bit pHash is W = 2, phash256 W = 8) up to what their shared memory
+holds (``K2_MAX_WORDS``, ``K4_MAX_WORDS``), and a launch takes at most
+``_MAX_QUERIES`` queries: every wrapper splits more into chunks
+(``max_queries``) and combines them exactly — frame_min is the elementwise
+min over chunks, q_min and q_arg are concatenated (q_arg indexes the corpus,
+so it needs no offset). The reference's Pallas scans take any M.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -43,8 +50,8 @@ K2 = backend.register(backend.Kernel(
     replaces="tvidz_tpu/ops/hamming.py:442 (_corpus_scan_kernel_mxu_twophase); "
              "tvidz_tpu/ops/hamming.py:116 (_corpus_scan_kernel)",
     entry_points={
-        "tvz_corpus_scan": [_p, _i, _p, _i, _p, _p, _p, _p, _p],
-        "tvz_corpus_frame_min": [_p, _i, _p, _i, _p, _p],
+        "tvz_corpus_scan": [_p, _i, _p, _i, _i, _p, _p, _p, _p, _p],
+        "tvz_corpus_frame_min": [_p, _i, _p, _i, _i, _p, _p],
     },
 ))
 K4 = backend.register(backend.Kernel(
@@ -55,8 +62,8 @@ K4 = backend.register(backend.Kernel(
              "tvidz_tpu/ops/hamming.py:553 (_corpus_frame_min_kernel_mxu); "
              "tvidz_tpu/ops/hamming.py:610 (_corpus_query_nearest_kernel_mxu)",
     entry_points={
-        "tvz_corpus_scan_tc": [_p, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p],
-        "tvz_corpus_scan_tc_grid": [_i, _i, ctypes.POINTER(ctypes.c_int)],
+        "tvz_corpus_scan_tc": [_p, _i, _p, _i, _i, _p, _i, _p, _p, _p, _p, _p, _p],
+        "tvz_corpus_scan_tc_grid": [_i, _i, _i, ctypes.POINTER(ctypes.c_int)],
     },
 ))
 
@@ -71,8 +78,13 @@ _M32 = 0xFFFFFFFF
 # Queries x corpus rows per block of the plain scan (bounds its memory).
 _PLAIN_PAIRS = 1 << 20
 _BIG = 1 << 30
-# The kernels' largest query count.
+# The kernels' largest query count a launch (the wrappers split more).
 _MAX_QUERIES = 16384
+# The widest rows each kernel takes (kMaxWords in its source): K2's wide
+# instance holds 1,024 rows of W words and 16,384 keys in shared memory;
+# K4 a 128-query chunk of 32·W bytes a query and a ring of two 256-row tiles.
+K2_MAX_WORDS = 40
+K4_MAX_WORDS = 37
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -131,8 +143,9 @@ def unpack_bits_pm1(packed: torch.Tensor) -> torch.Tensor:
 
 def hamming_matrix_pm1(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """(M, W) x (N, W) packed int32 -> (M, N) int32 Hamming distances as
-    (bits - q_pm1 @ c_pm1^T) / 2: a float32 product of ±1 values, exact for
-    sums of at most 64 terms (and in TF32 too: ±1 needs no mantissa)."""
+    (bits - q_pm1 @ c_pm1^T) / 2: a float32 product of 32·W ±1 values,
+    exact while a sum stays within 2^24 in magnitude (any W below 2^19;
+    TF32 too: ±1 needs no mantissa)."""
     bits = 32 * q.shape[1]
     dots = unpack_bits_pm1(q) @ unpack_bits_pm1(c).T
     return ((bits - dots) * 0.5).to(torch.int32)
@@ -164,30 +177,49 @@ def _check_scan_inputs(q, corpus):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _check_kernel_inputs(q, corpus, what):
-    """The kernels' contract: W = 2, 1 <= M <= 16384, N < 2^31, contiguous
-    int32 rows on one CUDA device."""
+def _check_kernel_inputs(q, corpus, what, max_words):
+    """The kernels' contract: 1 <= W <= ``max_words``, 1 <= M <= 16384,
+    N < 2^31, contiguous int32 rows on one CUDA device."""
     dev = q.device
-    m, n = q.shape[0], corpus.shape[0]
-    if q.shape[1] != 2 or corpus.shape[1] != 2:
-        raise NotImplementedError(
-            f"the {what} kernel takes 64-bit fingerprints (2 words), got "
-            f"{q.shape[1]} and {corpus.shape[1]} words")
-    backend.require(q, "queries", torch.int32, (m, 2), dev)
-    backend.require(corpus, "corpus", torch.int32, (n, 2), dev)
+    m, n, w = q.shape[0], corpus.shape[0], q.shape[1]
+    if not 1 <= w <= max_words:
+        raise ValueError(f"the {what} kernel takes rows of 1..{max_words} words "
+                         f"(its shared memory), got {w}")
+    backend.require(q, "queries", torch.int32, (m, w), dev)
+    backend.require(corpus, "corpus", torch.int32, (n, w), dev)
     if not 1 <= m <= _MAX_QUERIES or not 1 <= n < 2 ** 31:
         raise ValueError(f"scan shape out of range: M={m}, N={n}")
     return dev, m, n
 
 
+Scan = Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def _by_query_chunks(scan: Callable[[torch.Tensor], Scan], q: torch.Tensor,
+                     max_queries: int) -> Scan:
+    """``scan`` over chunks of at most ``max_queries`` query rows (no more
+    than a launch takes), combined exactly: frame_min the elementwise min
+    over chunks, q_min and q_arg concatenated."""
+    chunk = min(int(max_queries), _MAX_QUERIES)
+    if chunk < 1:
+        raise ValueError(f"max_queries must be >= 1, got {max_queries}")
+    if q.shape[0] <= chunk:
+        return scan(q)
+    fmin, q_min, q_arg = zip(*(scan(q[s:s + chunk])
+                               for s in range(0, q.shape[0], chunk)))
+    return (None if fmin[0] is None else functools.reduce(torch.minimum, fmin),
+            None if q_min[0] is None else torch.cat(q_min),
+            None if q_arg[0] is None else torch.cat(q_arg))
+
+
 def _corpus_min_distance_cuda(q, corpus, frame_min):
-    dev, m, n = _check_kernel_inputs(q, corpus, "corpus-scan")
+    dev, m, n = _check_kernel_inputs(q, corpus, "corpus-scan", K2_MAX_WORDS)
     fmin = torch.empty((n,), dtype=torch.int32, device=dev) if frame_min else None
     keys = torch.empty((m,), dtype=torch.int64, device=dev)
     q_min = torch.empty((m,), dtype=torch.int32, device=dev)
     q_arg = torch.empty((m,), dtype=torch.int32, device=dev)
     p = backend.ptr
-    K2.call("tvz_corpus_scan", p(q), m, p(corpus), n,
+    K2.call("tvz_corpus_scan", p(q), m, p(corpus), n, q.shape[1],
             None if fmin is None else p(fmin), p(keys), p(q_min), p(q_arg),
             backend.stream_ptr(dev))
     K2.launches += 1
@@ -196,29 +228,41 @@ def _corpus_min_distance_cuda(q, corpus, frame_min):
 
 def corpus_min_distance(
     q: torch.Tensor, corpus: torch.Tensor, frame_min: bool = True,
+    max_queries: int = _MAX_QUERIES,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (M, W), corpus (N, W) packed int32 on one device -> (frame_min (N,)
     int32, or None when ``frame_min=False``; q_min (M,) int32; q_arg (M,)
-    int32). CUDA tensors go to kernel K2, CPU tensors to the plain version."""
+    int32). CUDA tensors go to kernel K2, CPU tensors to the plain version,
+    ``max_queries`` rows a call."""
     _check_scan_inputs(q, corpus)
-    if q.is_cuda:
-        return _corpus_min_distance_cuda(q, corpus, frame_min)
-    return corpus_min_distance_plain(q, corpus, frame_min)
+    one = (functools.partial(_corpus_min_distance_cuda, corpus=corpus,
+                             frame_min=frame_min) if q.is_cuda else
+           functools.partial(corpus_min_distance_plain, corpus=corpus,
+                             frame_min=frame_min))
+    return _by_query_chunks(one, q, max_queries)
 
 
-def corpus_frame_min_xor(q: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+def _corpus_frame_min_xor_cuda(q, corpus):
+    dev, m, n = _check_kernel_inputs(q, corpus, "corpus-scan", K2_MAX_WORDS)
+    fmin = torch.empty((n,), dtype=torch.int32, device=dev)
+    p = backend.ptr
+    K2.call("tvz_corpus_frame_min", p(q), m, p(corpus), n, q.shape[1], p(fmin),
+            backend.stream_ptr(dev))
+    K2.launches += 1
+    return fmin, None, None
+
+
+def corpus_frame_min_xor(q: torch.Tensor, corpus: torch.Tensor,
+                         max_queries: int = _MAX_QUERIES) -> torch.Tensor:
     """frame_min (N,) int32 alone through K2's frame_min-only instance (no
     per-query key work); the plain XOR version on CPU tensors."""
     _check_scan_inputs(q, corpus)
-    if not q.is_cuda:
-        return corpus_min_distance_plain(q, corpus, True)[0]
-    dev, m, n = _check_kernel_inputs(q, corpus, "corpus-scan")
-    fmin = torch.empty((n,), dtype=torch.int32, device=dev)
-    p = backend.ptr
-    K2.call("tvz_corpus_frame_min", p(q), m, p(corpus), n, p(fmin),
-            backend.stream_ptr(dev))
-    K2.launches += 1
-    return fmin
+    if q.is_cuda:
+        one = functools.partial(_corpus_frame_min_xor_cuda, corpus=corpus)
+    else:
+        def one(qc):
+            return corpus_min_distance_plain(qc, corpus, True)[0], None, None
+    return _by_query_chunks(one, q, max_queries)[0]
 
 
 # Per (device, stream): K4's key workspace (all ones) and its ticket (0).
@@ -236,65 +280,77 @@ def _scan_workspace(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     return ws
 
 
-def corpus_scan_tc(q: torch.Tensor, corpus: torch.Tensor, mode: str,
-                   rows: Optional[torch.Tensor] = None
-                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
-                              Optional[torch.Tensor]]:
-    """One mode of K4 (see ``MODES``): q (M, W), corpus (N, W) packed int32
-    on one device -> (frame_min (N,) or None, q_min (M,) or None, q_arg (M,)
-    or None), int32, as ``mode`` produces them. ``full_cols`` reads each
-    row's index from ``rows``, an (N,) int32 tensor holding 0..N-1 (built
-    here when None). CUDA tensors launch K4 (one persistent launch), CPU
-    tensors run ``corpus_scan_pm1_plain``."""
-    if mode not in _MODE_OUTPUTS:
-        raise ValueError(f"unknown scan mode {mode!r}; one of {MODES}")
-    _check_scan_inputs(q, corpus)
-    if not q.is_cuda:
-        return corpus_scan_pm1_plain(q, corpus, mode)
-    dev, m, n = _check_kernel_inputs(q, corpus, "tensor-core scan")
+def _corpus_scan_tc_cuda(q, corpus, mode, rows):
+    dev, m, n = _check_kernel_inputs(q, corpus, "tensor-core scan", K4_MAX_WORDS)
     want_fmin, want_query = _MODE_OUTPUTS[mode]
-    if mode == "full_cols":
-        if rows is None:
-            rows = torch.arange(n, dtype=torch.int32, device=dev)
-        backend.require(rows, "rows", torch.int32, (n,), dev)
-    else:
-        rows = None
     empty = lambda shape: torch.empty(shape, dtype=torch.int32, device=dev)  # noqa: E731
     fmin = empty((n,)) if want_fmin else None
     q_min = empty((m,)) if want_query else None
     q_arg = empty((m,)) if want_query else None
     keys, ticket = _scan_workspace(dev) if want_query else (None, None)
     p = lambda t: None if t is None else backend.ptr(t)  # noqa: E731
-    K4.call("tvz_corpus_scan_tc", p(q), m, p(corpus), n, p(rows),
+    K4.call("tvz_corpus_scan_tc", p(q), m, p(corpus), n, q.shape[1], p(rows),
             MODES.index(mode), p(fmin), p(keys), p(ticket), p(q_min), p(q_arg),
             backend.stream_ptr(dev))
     K4.launches += 1
     return fmin, q_min, q_arg
 
 
-def corpus_scan_tc_grid(mode: str, n: int, device: torch.device) -> int:
+def corpus_scan_tc(q: torch.Tensor, corpus: torch.Tensor, mode: str,
+                   rows: Optional[torch.Tensor] = None,
+                   max_queries: int = _MAX_QUERIES) -> Scan:
+    """One mode of K4 (see ``MODES``): q (M, W), corpus (N, W) packed int32
+    on one device -> (frame_min (N,) or None, q_min (M,) or None, q_arg (M,)
+    or None), int32, as ``mode`` produces them. ``full_cols`` reads each
+    row's index from ``rows``, an (N,) int32 tensor holding 0..N-1 (built
+    here when None). CUDA tensors launch K4 (one persistent launch per
+    ``max_queries`` queries), CPU tensors run ``corpus_scan_pm1_plain``."""
+    if mode not in _MODE_OUTPUTS:
+        raise ValueError(f"unknown scan mode {mode!r}; one of {MODES}")
+    _check_scan_inputs(q, corpus)
+    if not q.is_cuda:
+        one = functools.partial(corpus_scan_pm1_plain, corpus=corpus, mode=mode)
+        return _by_query_chunks(one, q, max_queries)
+    if mode == "full_cols":
+        n = corpus.shape[0]
+        if rows is None:
+            rows = torch.arange(n, dtype=torch.int32, device=q.device)
+        backend.require(rows, "rows", torch.int32, (n,), q.device)
+    else:
+        rows = None
+    one = functools.partial(_corpus_scan_tc_cuda, corpus=corpus, mode=mode,
+                            rows=rows)
+    return _by_query_chunks(one, q, max_queries)
+
+
+def corpus_scan_tc_grid(mode: str, n: int, device: torch.device,
+                        words: int = 2) -> int:
     """The number of CTAs K4's ``mode`` launches on ``device`` for an
-    ``n``-row corpus. CTA c walks the tiles ``[tiles c / grid, tiles (c+1) /
-    grid)`` of 256 rows in ascending order, so tests can plant ties at the
-    edges of the ranges the card really uses. Launches nothing."""
+    ``n``-row corpus of ``words``-word rows (the occupancy depends on W).
+    CTA c walks the tiles ``[tiles c / grid, tiles (c+1) / grid)`` of 256
+    rows in ascending order, so tests can plant ties at the edges of the
+    ranges the card really uses. Launches nothing."""
     if mode not in _MODE_OUTPUTS:
         raise ValueError(f"unknown scan mode {mode!r}; one of {MODES}")
     grid = ctypes.c_int(0)
     with torch.cuda.device(device):
         K4.call("tvz_corpus_scan_tc_grid", MODES.index(mode), int(n),
-                ctypes.byref(grid))
+                int(words), ctypes.byref(grid))
     return grid.value
 
 
-def corpus_query_nearest(q: torch.Tensor, corpus: torch.Tensor
+def corpus_query_nearest(q: torch.Tensor, corpus: torch.Tensor,
+                         max_queries: int = _MAX_QUERIES
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(q_min, q_arg) only — the nearest_video_counts verdict path, through
     K4's ``query_nearest`` mode (no frame_min store)."""
-    _, q_min, q_arg = corpus_scan_tc(q, corpus, "query_nearest")
+    _, q_min, q_arg = corpus_scan_tc(q, corpus, "query_nearest",
+                                     max_queries=max_queries)
     return q_min, q_arg
 
 
-def corpus_frame_min(q: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+def corpus_frame_min(q: torch.Tensor, corpus: torch.Tensor,
+                     max_queries: int = _MAX_QUERIES) -> torch.Tensor:
     """frame_min only — the search_fingerprints evidence path, through K4's
     ``frame_min`` mode (no per-query key work)."""
-    return corpus_scan_tc(q, corpus, "frame_min")[0]
+    return corpus_scan_tc(q, corpus, "frame_min", max_queries=max_queries)[0]

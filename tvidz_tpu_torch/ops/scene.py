@@ -6,9 +6,11 @@ Port of ``tvidz_tpu/ops/scene.py``:
     score[t] = clip(min(mafd[t], |mafd[t] - mafd[t-1]|) / 100, 0, 1)
 
 The carry (last luma frame, its mafd, a has-previous flag) makes block
-boundaries invisible. ``scene_scores_block`` is the plain PyTorch version;
-on the GPU the fingerprint-block kernel (ops/fused.py) computes the same
-scores. ``NativeSceneScorer`` is the host policy shared by every surface and
+boundaries invisible. ``scene_scores_block`` is the plain PyTorch version
+(``scene_scores_blocks`` the same over K streams at once, as the
+reference's ``jax.vmap`` of it); on the GPU the fingerprint-block kernel
+(ops/fused.py) computes the same scores for the 64-bit pHash, and the other
+hash families take these plain versions (ops/fused.fingerprint_family_*). ``NativeSceneScorer`` is the host policy shared by every surface and
 is carried over unchanged except that device scores arrive as a tensor.
 """
 
@@ -179,3 +181,30 @@ def scene_scores_block(
         has_prev=torch.ones((), dtype=torch.bool, device=x.device),
     )
     return scores, new_carry
+
+
+def scene_scores_blocks(lumas: torch.Tensor, carries, valid_ts
+                        ) -> Tuple[torch.Tensor, Tuple[SceneCarry, ...]]:
+    """``scene_scores_block`` of K streams at once: (K, T, H, W) luma, K
+    carries and K real frame counts -> ((K, T) float32 scores, K new
+    carries), stream k continuing its own carry."""
+    k, t = lumas.shape[:2]
+    x = lumas.reshape(k, t, -1).to(torch.float32)
+    prev = torch.cat([torch.stack([c.prev_frame.reshape(-1) for c in carries])[:, None],
+                      x[:, :-1]], dim=1)
+    mafd = torch.mean(torch.abs(x - prev), dim=2)                 # (K, T)
+    has_prev = torch.stack([c.has_prev for c in carries])
+    is_stream_start = (torch.logical_not(has_prev)[:, None]
+                       & (torch.arange(t, device=x.device) == 0)[None, :])
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    mafd = torch.where(is_stream_start, zero, mafd)
+    prev_mafd = torch.cat([torch.stack([c.prev_mafd for c in carries])[:, None],
+                           mafd[:, :-1]], dim=1)
+    diff = torch.abs(mafd - prev_mafd)
+    scores = torch.clamp(torch.minimum(mafd, diff) / 100.0, 0.0, 1.0)
+    scores = torch.where(is_stream_start, zero, scores)
+    one = torch.ones((), dtype=torch.bool, device=x.device)
+    new = tuple(SceneCarry(prev_frame=x[j, int(v) - 1].reshape(lumas.shape[2:]).clone(),
+                           prev_mafd=mafd[j, int(v) - 1].clone(), has_prev=one)
+                for j, v in enumerate(valid_ts))
+    return scores, new
