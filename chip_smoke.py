@@ -12,8 +12,25 @@ with a 40,000-frame query), the inspector service (uploads over the fake S3
 -> SQS path, SSE, fragment and video search, a 16,500-frame video among
 them) and a short ``bench`` against a 2^20-fingerprint corpus, then the
 same CLI and searches under ``TVIDZ_HASH_ALGO=phash256`` (8-word
-fingerprints through K3 and K4), and time it. Launch counts are zeroed
-before and read after each of those paths.
+fingerprints through K3 and K4), then:
+
+- ``wide_words``: K2, K3 and K4 at W = 26, 32, 42 and 128 (their
+  word-chunked walks) against their plain versions, ties at K4's range
+  edges, and the CLI and searches under ``TVIDZ_HASH_SIZE=32``;
+- ``ship_coeffs``: ``TVIDZ_SHIP_DCT_COEFFS=1`` — K1's median-pack entry on
+  planted median ties, the CLI analyze against the luma mode, the service's
+  renamed-copy verdict through the shared dispatcher;
+- ``forward_batch``: 8 clips of 128 frames in one K1 launch against the
+  plain version;
+- ``multistream``: ``fingerprint_streams`` over 8 uploads of different
+  lengths and one whose decoder raises, at max_active 2 and 8, each stream
+  equal to its lone analyze, K1 launches equal to the passes;
+- ``bench_legs``: the bench's ingest legs at ``--sizes smoke``, and on a
+  line of its own (``decoders``) what the machine offers to write and
+  decode their MJPEG and H.264 fixtures;
+
+and time it. Launch counts are zeroed before and read after each of those
+paths.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OLD_ROOT
@@ -64,6 +81,13 @@ ODD_GEOMETRIES = ((91, 163), (33, 47), (720, 1280), (8, 8), (180, 320),
                   (90, 162), (90, 160))
 K1_TIMED_GEOMETRIES = ((180, 320), (720, 1280))
 WIDE_WORDS = (1, 3, 8)                      # K2 and K4 at other word widths
+# Past one pass of the kernels' shared memory (the word-chunked walks):
+# W = 32 (TVIDZ_HASH_SIZE=32) and 128 (TVIDZ_DCT_SIZE=64 TVIDZ_HASH_SIZE=64),
+# and 26 and 42, whose last chunk of words is short.
+WIDER_WORDS = (26, 32, 42, 128)
+# K3 at those widths: (Q, Tq_pad, V, Tc), six offset bands a (query, video).
+K3_WIDER_SHAPE = (2, 256, 96, 512)
+K3_WIDER_THRS = (0, 10, 40)
 PHASH256_WORDS = 8
 BIG_M = (16_385, 40_000)                    # queries past one launch
 LONG_VIDEO_FRAMES = 16_500                  # a /search/video past one launch
@@ -682,35 +706,46 @@ def check_scan_modes(dev):
     return float(err)
 
 
+def scans_against_plain(name, q, corpus, ties=None, words=2) -> float:
+    """K4's five modes and K2's two entry points on (q, corpus) held
+    exactly to the plain XOR scan, and the planted answers of
+    ``scan_inputs`` when ``ties`` is given; returns the largest error."""
+    import torch
+
+    from tvidz_tpu_torch.ops import hamming
+
+    want = hamming.corpus_min_distance_plain(q, corpus)
+    got = {f"k4_{mode}": hamming.corpus_scan_tc(q, corpus, mode)
+           for mode in hamming.MODES}
+    got["k2"] = hamming.corpus_min_distance(q, corpus)
+    got["k2_frame_min"] = (hamming.corpus_frame_min_xor(q, corpus), None, None)
+    torch.cuda.synchronize()
+    err = 0
+    for variant, outs in got.items():
+        for o, w in zip(outs, want):
+            if o is not None:
+                err = max(err, (o - w).abs().max().item())
+                check(torch.equal(o, w),
+                      f"{variant} differs from the plain version at {name}")
+        if ties is not None and outs[2] is not None:
+            check_planted(f"{variant} ({name})", ties, outs[1], outs[2],
+                          words=words)
+    return err
+
+
 def check_wide_scans(dev) -> float:
     """K4's five modes and K2's two entry points at WIDE_WORDS word widths
     (M=128, N=2^20, the planted ties of ``scan_inputs`` at the range edges
     of the grid K4 reports for each W; and M=37, N=3000 at W=5), and at W=2
     and W=8 past one launch's 16,384 queries (BIG_M, N=8192): every output
     equal to the plain XOR scan."""
-    import torch
-
     from tvidz_tpu_torch.ops import hamming
 
     err, checked = 0, []
 
     def against_plain(name, q, corpus, ties=None, words=2):
         nonlocal err
-        want = hamming.corpus_min_distance_plain(q, corpus)
-        got = {f"k4_{mode}": hamming.corpus_scan_tc(q, corpus, mode)
-               for mode in hamming.MODES}
-        got["k2"] = hamming.corpus_min_distance(q, corpus)
-        got["k2_frame_min"] = (hamming.corpus_frame_min_xor(q, corpus), None, None)
-        torch.cuda.synchronize()
-        for variant, outs in got.items():
-            for o, w in zip(outs, want):
-                if o is not None:
-                    err = max(err, (o - w).abs().max().item())
-                    check(torch.equal(o, w),
-                          f"{variant} differs from the plain version at {name}")
-            if ties is not None and outs[2] is not None:
-                check_planted(f"{variant} ({name})", ties, outs[1], outs[2],
-                              words=words)
+        err = max(err, scans_against_plain(name, q, corpus, ties, words))
 
     for words in WIDE_WORDS:
         ties, grids = planted(dev, words)
@@ -738,6 +773,71 @@ def check_wide_scans(dev) -> float:
     phase("k4_k2_any_width", modes=list(hamming.MODES),
           also=["k2", "k2_frame_min"], max_abs_err=err, exact=True, cases=checked)
     return float(err)
+
+
+def check_wider_words(dev) -> dict:
+    """K2, K3 and K4 at WIDER_WORDS (the word-chunked walks) against their
+    plain versions, exactly: K4's five modes and K2's two entry points at
+    M=128, N=2^20 with the ties of ``scan_inputs`` planted at the edges of
+    the ranges K4 reports for each W, and at M=37, N=3000; K3 at
+    K3_WIDER_SHAPE at thresholds K3_WIDER_THRS with its planted fragments,
+    and on a bucket of identical rows. K4's grid is asked for W = 128, 8,
+    42 and 2 in turn first: no later W may lower an earlier one's
+    shared-memory opt-in (each is launched after)."""
+    import torch
+
+    from tvidz_tpu_torch.ops import align, hamming
+
+    order = {w: hamming.corpus_scan_tc_grid("query_nearest", SCAN_N, dev, w)
+             for w in (128, 8, 42, 2)}
+    err, scans, frags = 0, [], []
+    for w in (128, 8, 42, 2):                # launched after every grid ask
+        q, corpus = scan_inputs(dev, {}, w)
+        got = hamming.corpus_query_nearest(q[:16], corpus[:4096])
+        want = hamming.corpus_min_distance_plain(q[:16], corpus[:4096], False)[1:]
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, x) for g, x in zip(got, want)),
+              f"K4 at W={w} after the grid was asked for other widths")
+        del corpus
+    for words in WIDER_WORDS:
+        ties, grids = planted(dev, words)
+        q, corpus = scan_inputs(dev, ties, words)
+        err = max(err, scans_against_plain(f"w{words}", q, corpus, ties, words),
+                  scans_against_plain(f"w{words}_small", q[:37], corpus[:3000]))
+        scans.append({"words": words, "m": SCAN_M, "n": SCAN_N, "grids": grids,
+                      "range_edge_ties": {k: v for k, v in ties.items() if k > 20}})
+        del corpus
+        (qs, q_lens, corpus, lens), plants = fragment_inputs(
+            dev, K3_WIDER_SHAPE, SEED + 9, words)
+        dense_c, dense_q = dense_inputs(corpus, qs)
+        for name, q_, c_, thr in ([(f"thr{t}", qs, corpus, t) for t in K3_WIDER_THRS]
+                                  + [("dense", dense_q, dense_c, FRAG_THR)]):
+            got = align.fragment_search_batch(q_, q_lens, c_, lens, thr)
+            want = align.fragment_search_batch_plain(q_, q_lens, c_, lens, thr)
+            torch.cuda.synchronize()
+            err = max(err, *((g - x).abs().max().item() for g, x in zip(got, want)))
+            check(all(torch.equal(g, x) for g, x in zip(got, want)),
+                  f"K3 at W={words} differs from the plain version at {name}")
+            if name == "thr10":
+                for qi, (row, off, n) in enumerate(plants):
+                    check(int(got[1][qi, row]) == n and int(got[0][qi, row]) == off,
+                          f"K3 at W={words} missed the planted fragment of query {qi}")
+            if name == "dense":
+                check(int(got[1][0, 0]) == int(q_lens[0]),
+                      f"K3 at W={words}, dense bucket: {got[1][0, :4].tolist()}")
+        frags.append({"words": words, "shape": list(K3_WIDER_SHAPE),
+                      "thresholds": list(K3_WIDER_THRS) + ["dense"]})
+    # A corpus the card could hold at W = 128 with more rows a CTA range
+    # than K4's key holds (2^27 rows, 64 GB): the grid grows past the
+    # resident CTAs (only asked, not launched).
+    big = {mode: hamming.corpus_scan_tc_grid(mode, 1 << 27, dev, 128)
+           for mode in hamming.MODES}
+    low = (1 << (32 - (32 * 128).bit_length())) - 1
+    tiles = (1 << 27) // 256
+    check(all(-(-tiles // g) * 256 < low for g in big.values()),
+          f"K4 grid at W=128, N=2^27 leaves a range past the key: {big}")
+    return {"max_abs_err": float(err), "scans": scans, "fragments": frags,
+            "grid_order": order, "grid_2_27_w128": big}
 
 
 # -- phase 5: K3 -----------------------------------------------------------------
@@ -1083,10 +1183,11 @@ def race_against(old_root: str, smi: str) -> None:
 # -- phase 6: the main path --------------------------------------------------------
 
 
-def prefill_store(db_path: str, words: int = 2) -> int:
+def prefill_store(db_path: str, words: int = 2,
+                  fp_videos: int = FILLER_FP_VIDEOS) -> int:
     """A realistic corpus, seeded: FILLER_VIDEOS videos with timestamps and
-    FILLER_FP_VIDEOS x FILLER_FP_FRAMES (= 2^20) random fingerprints of
-    ``words`` words, written in one transaction into the store's own
+    ``fp_videos`` x FILLER_FP_FRAMES (2^20 by default) random fingerprints
+    of ``words`` words, written in one transaction into the store's own
     schema."""
     import numpy as np
 
@@ -1116,9 +1217,9 @@ def prefill_store(db_path: str, words: int = 2) -> int:
             "VALUES (?, ?, ?)",
             [(i + 1, words, rng.integers(0, 2 ** 32, size=(FILLER_FP_FRAMES, words),
                                          dtype=np.uint32).tobytes())
-             for i in range(FILLER_FP_VIDEOS)])
+             for i in range(fp_videos)])
     con.close()
-    return FILLER_FP_VIDEOS * FILLER_FP_FRAMES
+    return fp_videos * FILLER_FP_FRAMES
 
 
 def run_cli(cli, argv):
@@ -1413,16 +1514,18 @@ def drive_service(work: str, url: str, smi: str) -> dict:
     return launches
 
 
-def drive_phash256(work: str, smi: str) -> dict:
-    """The port under ``TVIDZ_HASH_ALGO=phash256`` (8-word fingerprints):
-    ``ingest`` / ``analyze`` / ``search`` through the CLI against a
-    2^20-fingerprint sqlite corpus of 8 words (32 MB on the card), then
-    ``/search/fragment`` and ``/search/video`` through the in-process
-    service on that store. The renamed copy must name the original and a
-    fresh video none; every verdict goes through K4 and every fragment
-    search through K3 at W = 8, and no block through K1 (the family's
-    plain-torch composition fingerprints). Launch counts zeroed before,
-    read after."""
+def drive_family(work: str, env: dict, words: int, tag: str,
+                 fp_videos: int = FILLER_FP_VIDEOS):
+    """The port under another fingerprint configuration (``env``: its
+    TVIDZ_* settings, ``words``-word fingerprints): ``ingest`` / ``analyze``
+    / ``search`` through the CLI against a sqlite corpus of ``fp_videos`` x
+    FILLER_FP_FRAMES fingerprints of that width, then ``/search/fragment``
+    and ``/search/video`` through the in-process service on that store. The
+    renamed copy must name the original and a fresh video none; every
+    verdict goes through K4 and every fragment search through K3 at that
+    W, and no block through K1 (the family's plain-torch composition
+    fingerprints). Launch counts zeroed before, read after. Returns
+    (launches, the phase's fields)."""
     from tvidz_tpu_torch import backend, cli
     from tvidz_tpu_torch.config import Config
     from tvidz_tpu_torch.corpus.store import Store
@@ -1432,7 +1535,7 @@ def drive_phash256(work: str, smi: str) -> dict:
     from tvidz_tpu_torch.service import fakes
     from tvidz_tpu_torch.service.app import create_app
 
-    root = os.path.join(work, "phash256")
+    root = os.path.join(work, tag)
 
     def video(sub, name, seed, n, cuts):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
@@ -1442,16 +1545,13 @@ def drive_phash256(work: str, smi: str) -> dict:
 
     # Early exit off, so that the renamed copy's whole sequence is stored
     # for the fragment search to take its span from.
-    os.environ.update(TVIDZ_HASH_ALGO="phash256", TVIDZ_EARLY_EXIT="0")
+    os.environ.update(TVIDZ_EARLY_EXIT="0", **env)
     app = None
     try:
         cfg = Config()
         model = FingerprintModel(cfg, device="cuda")
-        check(cfg.hash.words == PHASH256_WORDS and not model.k1,
-              f"phash256: {cfg.hash.words} words, K1 {model.k1}")
-        composition = ("ops/fused.fingerprint_family_block: "
-                       "ops/scene.scene_scores_block + ops/hashes.phash256_batched "
-                       "(plain torch; K1 computes the 64-bit pHash only)")
+        check(cfg.hash.words == words and not model.k1,
+              f"{tag}: {cfg.hash.words} words, K1 {model.k1}")
         sigma, _ = video("orig", "sigma.y4m", 21, 300, (60, 150, 240))
         video("orig", "tau.y4m", 22, 260, (50, 170))
         renamed = os.path.join(root, "copy", "renamed.y4m")
@@ -1460,7 +1560,7 @@ def drive_phash256(work: str, smi: str) -> dict:
         upsilon, upsilon_cuts = video("fresh", "upsilon.y4m", 23, 280, (70, 200))
         db = os.path.join(root, "corpus.db")
         t0 = time.perf_counter()
-        n_fp = prefill_store(db, words=PHASH256_WORDS)
+        n_fp = prefill_store(db, words=words, fp_videos=fp_videos)
         prefill_s = time.perf_counter() - t0
         url = f"sqlite:///{db}"
         backend.reset_launch_counts()
@@ -1468,19 +1568,19 @@ def drive_phash256(work: str, smi: str) -> dict:
         rc, out = run_cli(cli, ["ingest", os.path.join(root, "orig"), "--db", url])
         check(rc == 0 and out[-1]["ingested"] == 2
               and out[-1]["corpus_fingerprints"] == n_fp + 560,
-              f"phash256 ingest: {out}")
+              f"{tag} ingest: {out}")
         rc, (res,) = run_cli(cli, ["analyze", renamed, "--db", url, "--compact"])
         check(rc == 0 and res["duplicates"] == ["sigma.y4m"],
-              f"phash256 renamed copy verdict: {res}")
+              f"{tag} renamed copy verdict: {res}")
         rc, (fresh,) = run_cli(cli, ["analyze", upsilon, "--db", url, "--compact"])
         check(rc == 0 and fresh["duplicates"] == []
-              and fresh["scene_cuts"] == upsilon_cuts, f"phash256 fresh video: {fresh}")
+              and fresh["scene_cuts"] == upsilon_cuts, f"{tag} fresh video: {fresh}")
         rc, (found,) = run_cli(cli, ["search", renamed, "--db", url])
         top = found["best_alignments"][0]
         check(rc == 0 and top["filename"] == "sigma.y4m" and top["offset_frames"] == 0
               and top["match_count"] == 300
               and found["fingerprint_matches"][0]["filename"] == "sigma.y4m",
-              f"phash256 search of the renamed copy: {found['best_alignments']}")
+              f"{tag} search of the renamed copy: {found['best_alignments']}")
         cli_s = time.perf_counter() - t0
 
         app = create_app(config=cfg, store=Store(url),
@@ -1489,8 +1589,8 @@ def drive_phash256(work: str, smi: str) -> dict:
         deadline = time.time() + 300
         while not app.device_ready and time.time() < deadline:
             time.sleep(0.05)
-        check(app.device_ready and app.corpus.words == PHASH256_WORDS,
-              "phash256 service did not get ready")
+        check(app.device_ready and app.corpus.words == words,
+              f"{tag} service did not get ready")
         client = app.wsgi.test_client()
         span = {"filename": "renamed.y4m", "start_frame": 50, "num_frames": 200}
         t0 = time.perf_counter()
@@ -1499,7 +1599,7 @@ def drive_phash256(work: str, smi: str) -> dict:
         check(frag["matches"][0]["filename"] == "sigma.y4m"
               and frag["matches"][0]["offset_frames"] == 50
               and frag["matches"][0]["match_count"] == 200,
-              f"phash256 /search/fragment: {frag}")
+              f"{tag} /search/fragment: {frag}")
         with open(sigma, "rb") as f:
             body = f.read()
         t0 = time.perf_counter()
@@ -1510,22 +1610,315 @@ def drive_phash256(work: str, smi: str) -> dict:
         check(best["filename"] == "sigma.y4m" and best["offset_frames"] == 0
               and best["match_count"] == 300
               and vid["fingerprint_matches"][0]["filename"] == "sigma.y4m",
-              f"phash256 /search/video: {vid['best_alignments']}")
+              f"{tag} /search/video: {vid['best_alignments']}")
     finally:
         if app is not None:
             app.stop()
-        for k in ("TVIDZ_HASH_ALGO", "TVIDZ_EARLY_EXIT"):
+        for k in ("TVIDZ_EARLY_EXIT", *env):
             del os.environ[k]
-    launches = read_launches({align.K3.name, hamming.K4.name}, "phash256 path")
+    launches = read_launches({align.K3.name, hamming.K4.name}, f"{tag} path")
     check(launches[fused.K1.name] == 0,
-          f"phash256: {launches[fused.K1.name]} K1 launches (the family's "
+          f"{tag}: {launches[fused.K1.name]} K1 launches (the family's "
           "composition launches none)")
-    phase("phash256_path", card=smi, words=PHASH256_WORDS, composition=composition,
-          launches=launches, corpus_fingerprints=n_fp + 560, prefill_s=prefill_s,
-          renamed_copy=res["duplicates"], fresh_duplicates=fresh["duplicates"],
-          search_top_alignment=top, cli_s=cli_s,
-          fragment_top=frag["matches"][0], search_fragment_s=fragment_s,
-          video_top=best, search_video_s=video_s)
+    return launches, dict(
+        words=words, launches=launches, corpus_fingerprints=n_fp + 560,
+        prefill_s=prefill_s, renamed_copy=res["duplicates"],
+        fresh_duplicates=fresh["duplicates"], search_top_alignment=top,
+        cli_s=cli_s, fragment_top=frag["matches"][0], search_fragment_s=fragment_s,
+        video_top=best, search_video_s=video_s)
+
+
+def drive_phash256(work: str, smi: str) -> dict:
+    """``drive_family`` under ``TVIDZ_HASH_ALGO=phash256`` (8-word
+    fingerprints) against a 2^20-fingerprint corpus (32 MB on the card)."""
+    composition = ("ops/fused.fingerprint_family_block: "
+                   "ops/scene.scene_scores_block + ops/hashes.phash256_batched "
+                   "(plain torch; K1 computes the 64-bit pHash only)")
+    launches, fields = drive_family(work, {"TVIDZ_HASH_ALGO": "phash256"},
+                                    PHASH256_WORDS, "phash256")
+    phase("phash256_path", card=smi, composition=composition, **fields)
+    return launches
+
+
+def drive_wide_words(dev, work: str, smi: str) -> dict:
+    """Phase ``wide_words``: K2, K3 and K4 at WIDER_WORDS against their
+    plain versions (``check_wider_words``), then the CLI and the searches
+    under ``TVIDZ_HASH_SIZE=32`` (32-word phash, K3 and K4 at W = 32)
+    against a corpus of 2^16 such fingerprints: both name the original."""
+    kernels = check_wider_words(dev)
+    launches, fields = drive_family(work, {"TVIDZ_HASH_SIZE": "32"}, 32, "hash32",
+                                    fp_videos=16)
+    phase("wide_words", card=smi, kernels=kernels, hash_size_32=fields)
+    return launches, kernels["max_abs_err"]
+
+
+def _coeff_ties(dev, n: int = 4096):
+    """(N, 64) float32 coefficients with planted median ties: integer-valued
+    rows (many equal values), rows whose two middle order statistics tie,
+    rows all equal, and rows with the median value itself present."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 20)
+    low = rng.normal(0, 50, size=(n, 64)).astype(np.float32)
+    low[: n // 4] = rng.integers(-4, 5, size=(n // 4, 64))
+    low[n // 4: n // 4 + 64, :33] = 7.25
+    low[n // 4 + 64: n // 4 + 80] = 3.0
+    srt = np.sort(low[n // 2:], axis=1)
+    low[n // 2:, 5] = (srt[:, 31] + srt[:, 32]) / 2
+    return torch.from_numpy(low).to(dev)
+
+
+def _service_uploads(work: str, tag: str, cfg, uploads, copy_of: str):
+    """The in-process service on a fresh store over the fake S3 -> SQS path,
+    shared dispatcher on: ``uploads`` ({name: path}) posted at once, then
+    ``copy_of``'s renamed copy; returns ({name: status}, K1 launches,
+    dispatcher passes), the launch count zeroed just before."""
+    from tvidz_tpu_torch import backend
+    from tvidz_tpu_torch.corpus.store import Store
+    from tvidz_tpu_torch.ops import fused
+    from tvidz_tpu_torch.service import fakes
+    from tvidz_tpu_torch.service.app import create_app
+
+    root = os.path.join(work, tag)
+    sqs, s3 = fakes.FakeSQS(), fakes.FakeS3(os.path.join(root, "s3"))
+    sqs.create_queue(cfg.service.sqs_queue)
+    s3.create_bucket(cfg.service.s3_bucket)
+    s3.configure_notification(sqs, cfg.service.sqs_queue)
+    app = create_app(config=cfg, store=Store(f"sqlite:///{root}/s.db"), s3=s3,
+                     sqs=sqs, device="cuda")
+    client = app.wsgi.test_client()
+
+    def verdict(name, timeout=300):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            data = client.get(f"/status/{name}").get_json()
+            if data.get("status") in ("done", "error"):
+                return data
+            time.sleep(0.02)
+        raise SmokeFailure(f"{tag}: no verdict for {name} in {timeout} s")
+
+    backend.reset_launch_counts()
+    try:
+        app.start_poller()
+        for name, path in uploads.items():
+            s3.put_file(cfg.service.s3_bucket, name, path)
+        out = {name: verdict(name) for name in uploads}
+        s3.put_file(cfg.service.s3_bucket, "renamed-copy.y4m", uploads[copy_of])
+        out["renamed-copy.y4m"] = verdict("renamed-copy.y4m")
+        k1, passes = fused.K1.launches, app.block_dispatcher.passes
+    finally:
+        app.stop()
+    return out, k1, passes
+
+
+def drive_ship_coeffs(dev, work: str, smi: str) -> dict:
+    """Phase ``ship_coeffs`` (``TVIDZ_SHIP_DCT_COEFFS=1``): K1's median-pack
+    entry against its plain version on (N, 64) coefficients with planted
+    median ties (bit for bit); the CLI ``analyze`` of a Y4M upload in the
+    coefficient mode against the luma mode (cuts equal; fingerprints within
+    HASH_BITS_TOL bits a frame, the count of bit-equal frames reported:
+    K1 projects in float32, the host in the golden float64); the service
+    with the shared dispatcher naming the original of a renamed copy, one
+    K1 (median-pack) launch per dispatcher pass."""
+    import torch
+
+    from tvidz_tpu_torch import backend, cli
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.decode import write_synthetic_y4m
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+    from tvidz_tpu_torch.ops import fused, phash
+
+    low = _coeff_ties(dev)
+    got = fused.median_pack_cuda(low)
+    want = phash.phash_from_coeffs_plain(low, 8)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"median pack differs from its plain version on {int((got != want).any(1).sum())} rows")
+    root = os.path.join(work, "coeff")
+    os.makedirs(root)
+    clip = os.path.join(root, "kappa.y4m")
+    _, planted = write_synthetic_y4m(clip, num_frames=300, height=180, width=320,
+                                     cut_frames=(60, 150, 240), seed=31)
+    results = {}
+    for mode, env in (("luma", {}), ("coeff", {"TVIDZ_SHIP_DCT_COEFFS": "1"})):
+        os.environ.update(env)
+        try:
+            rc, (res,) = run_cli(cli, ["analyze", clip, "--db",
+                                       f"sqlite:///{root}/{mode}.db", "--compact"])
+            model = FingerprintModel(Config(), device="cuda")
+            check(model.ship_coeffs == (mode == "coeff"), f"{mode}: ship_coeffs")
+            cuts, fps = model.analyze_path(clip)
+        finally:
+            for k in env:
+                del os.environ[k]
+        check(rc == 0 and res["status"] == "done" and res["scene_cuts"] == planted
+              and cuts == planted, f"coefficient mode, {mode} analyze: {res}")
+        results[mode] = (res, fps)
+    bits = popcount_rows(results["luma"][1] ^ results["coeff"][1])
+    check(int(bits.max()) <= HASH_BITS_TOL,
+          f"coefficient fingerprints {int(bits.max())} bits from the luma path's")
+    os.environ["TVIDZ_SHIP_DCT_COEFFS"] = "1"
+    try:
+        cfg = Config()
+        check(cfg.pipeline.shared_dispatcher and cfg.pipeline.ship_dct_coeffs,
+              "coefficient service config")
+        ups = {}
+        for name, seed, cut in (("lambda.y4m", 32, (70, 190)), ("mu.y4m", 33, (40, 220))):
+            ups[name] = os.path.join(root, name)
+            write_synthetic_y4m(ups[name], num_frames=260, height=180, width=320,
+                                cut_frames=cut, seed=seed)
+        verdicts, k1, passes = _service_uploads(work, "coeff_svc", cfg, ups,
+                                                "lambda.y4m")
+    finally:
+        del os.environ["TVIDZ_SHIP_DCT_COEFFS"]
+    check(all(v["status"] == "done" for v in verdicts.values())
+          and verdicts["lambda.y4m"]["duplicates"] == []
+          and verdicts["mu.y4m"]["duplicates"] == []
+          and verdicts["renamed-copy.y4m"]["duplicates"] == ["lambda.y4m"],
+          f"coefficient service verdicts: {verdicts}")
+    check(k1 == passes > 0, f"coefficient service: {k1} K1 launches in {passes} passes")
+    launches = {k.name: k.launches for k in backend.KERNELS}
+    phase("ship_coeffs", card=smi, median_pack_rows=low.shape[0],
+          median_pack_bit_equal=True, analyze_cuts=results["coeff"][0]["scene_cuts"],
+          planted_cuts=planted, fingerprint_max_bit_diff=int(bits.max()),
+          frames_bit_equal=int((bits == 0).sum()), frames=int(bits.shape[0]),
+          service_verdicts={k: v["duplicates"] for k, v in verdicts.items()},
+          service_k1_launches=k1, dispatcher_passes=passes, launches=launches)
+    return launches
+
+
+def drive_forward_batch(dev, smi: str) -> dict:
+    """Phase ``forward_batch``: B = 8 clips of 128 90x160 frames through
+    ``FingerprintModel.forward_batch`` (one K1 launch, 8 segments from the
+    initial carry) against the plain version on the same clips (scores
+    within SCORE_TOL, hashes within HASH_BITS_TOL bits), frame 0 of each
+    clip scored 0."""
+    import torch
+
+    from tvidz_tpu_torch import backend
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+    from tvidz_tpu_torch.ops import fused
+
+    model = FingerprintModel(Config(), device="cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    clips = torch.randint(0, 256, (8, FRAMES, HEIGHT, WIDTH), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    backend.reset_launch_counts()
+    scores, fps = model.forward_batch(clips)
+    torch.cuda.synchronize()
+    launches = read_launches({fused.K1.name}, "forward_batch")
+    check(launches[fused.K1.name] == 1,
+          f"forward_batch: {launches[fused.K1.name]} K1 launches, not 1")
+    init = fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev)
+    ps, pf, _ = fused.fingerprint_blocks_batched_plain(
+        list(clips), [init] * 8, [FRAMES] * 8, model.left, model.right)
+    err = (scores - ps).abs().max().item()
+    bits = hash_bits(fps.reshape(-1, 2), pf.reshape(-1, 2))
+    check(err <= SCORE_TOL and int(bits.max()) <= HASH_BITS_TOL
+          and not scores[:, 0].any().item(),
+          f"forward_batch vs plain: score err {err}, {int(bits.max())} bits")
+    phase("forward_batch", card=smi, clips=[8, FRAMES, HEIGHT, WIDTH],
+          launches=launches, score_max_abs_err=err,
+          hash_max_bit_diff=int(bits.max()), frames_bit_equal=int((bits == 0).sum()))
+    return launches
+
+
+def drive_multistream(work: str, smi: str) -> dict:
+    """Phase ``multistream``: ``fingerprint_streams`` over 8 Y4M uploads of
+    different lengths and a ninth whose decoder raises, at max_active 2 and
+    8: the bad stream fails alone, the call returns, every other stream's
+    cuts and fingerprints equal a lone ``analyze_path`` of its file, and
+    K1's launches equal the passes the stats report (each run's counts
+    zeroed just before)."""
+    import numpy as np
+
+    from tvidz_tpu_torch import backend
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.decode import write_synthetic_y4m
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+    from tvidz_tpu_torch.ops import fused
+    from tvidz_tpu_torch.pipeline.multistream import fingerprint_streams
+
+    root = os.path.join(work, "multistream")
+    os.makedirs(root)
+    paths = []
+    for i, n in enumerate((300, 128, 513, 260, 77, 400, 1000, 129)):
+        paths.append(os.path.join(root, f"s{i}.y4m"))
+        write_synthetic_y4m(paths[-1], num_frames=n, height=180, width=320,
+                            cut_frames=(n // 3, 2 * n // 3), seed=40 + i)
+    bad = os.path.join(root, "bad.y4m")
+    with open(bad, "wb") as f:
+        f.write(b"not a y4m stream" * 64)
+    model = FingerprintModel(Config(), device="cuda")
+    lone = {p: model.analyze_path(p) for p in paths}
+    runs = {}
+    launches = None
+    for max_active in (2, 8):
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, stats = fingerprint_streams(paths + [bad], model=model,
+                                             max_active=max_active)
+        wall = time.perf_counter() - t0
+        k1 = fused.K1.launches
+        launches = {k.name: k.launches for k in backend.KERNELS}
+        check(results[-1].error is not None and results[-1].frames == 0,
+              f"multistream: the bad stream did not fail: {results[-1]}")
+        for r in results[:-1]:
+            cuts, fps = lone[r.path]
+            check(r.error is None and r.scene_cuts == cuts
+                  and np.array_equal(r.fingerprints, fps),
+                  f"multistream (max_active {max_active}): {r.path} differs from "
+                  f"its lone analyze: {r.error}, {r.scene_cuts} vs {cuts}")
+        check(k1 == stats.dispatches > 0,
+              f"multistream: {k1} K1 launches in {stats.dispatches} passes")
+        runs[max_active] = {"frames": stats.frames, "passes": stats.dispatches,
+                            "k1_launches": k1, "wall_s": wall,
+                            "frames_per_s": stats.frames_per_s,
+                            "frames_per_pass": stats.frames / stats.dispatches,
+                            "decode_starved_s": stats.decode_starved_s,
+                            "dispatch_s": stats.dispatch_s,
+                            "resolve_s": stats.resolve_s,
+                            "bad_stream_error": results[-1].error}
+    phase("multistream", card=smi, streams=len(paths) + 1, runs=runs,
+          launches=launches)
+    return launches
+
+
+INGEST_LEGS = ("boot_restore,batched_clips,decode_roofline,e2e_modes,e2e_scaling,"
+               "service,e2e_scaling_y4m,service_y4m")
+
+
+def drive_bench_legs(smi: str) -> dict:
+    """Phase ``bench_legs``: the bench's ingest legs through its CLI at
+    ``--sizes smoke``; the record (every key of bench.py's, a null one with
+    its reason) printed on the phase's line. Launch counts zeroed just
+    before and read just after."""
+    from tvidz_tpu_torch import backend, bench, cli
+    from tvidz_tpu_torch.ops import fused
+
+    backend.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--sizes", "smoke", "--legs", INGEST_LEGS])
+    launches = read_launches({fused.K1.name}, "bench ingest legs")
+    card, record = buf.getvalue().strip().splitlines()[-2:]
+    rec = json.loads(record)
+    check(rc == 0 and card == smi, f"bench legs: exit {rc}, card line {card!r}")
+    missing = [k for k in bench.RECORD_KEYS if k not in rec]
+    unexplained = [k for k in bench.RECORD_KEYS
+                   if rec[k] is None and not rec["why_null"].get(k)]
+    check(not missing and not unexplained,
+          f"bench legs: keys missing {missing}, null without a reason {unexplained}")
+    check(rec["boot_restore_1m_s"] > 0 and rec["batched_clips_k1_launches_per_call"] == 1
+          and set(rec["e2e_streams_y4m_frames_per_sec"]) == {"1", "8"}
+          and rec["service_e2e_y4m_blocks_per_pass"] >= 1.0,
+          f"bench legs: {rec}")
+    phase("bench_legs", card=card, launches=launches, record=rec)
+    # What writes and decodes the MJPEG and H.264 fixtures on this machine.
+    phase("decoders", card=card, **rec["host"]["decoders"])
     return launches
 
 
@@ -1704,6 +2097,12 @@ def time_kernels(dev) -> dict:
                        "bound_ms": b[0], "bound_by": b[1],
                        "grid": hamming.corpus_scan_tc_grid(mode, SCAN_N, dev,
                                                            PHASH256_WORDS)}
+    # K2 at W = 8: its chunked instance in one chunk (off every route).
+    fn = lambda: hamming.corpus_min_distance(q8, corpus8, frame_min=False)  # noqa: E731
+    fn()
+    b = scan_bound(SCAN_M, SCAN_N, PHASH256_WORDS)
+    k2_w8 = {"ms": cuda_ms(fn, 5), "device_ms": device_ms(fn, 5),
+             "bound_ms": b[0], "bound_by": b[1]}
     del corpus8
     (qs8, ql8, c8, ln8), _ = fragment_inputs(dev, FRAG_A, SEED + 3, PHASH256_WORDS)
     fn = lambda: align.fragment_search_batch(qs8, ql8, c8, ln8, FRAG_THR)  # noqa: E731
@@ -1719,8 +2118,45 @@ def time_kernels(dev) -> dict:
              "device_ms": device_ms(fn, 10), "bound_ms": b[0], "bound_by": b[1],
              "dense_device_ms": device_ms(
                  lambda: align.fragment_search_batch(dq8, ql8, dc8, ln8, FRAG_THR), 5)}
+    # K4, K2 and K3 at the widths they walk in word chunks (and W = 26 and
+    # 32, which K4 holds in one pass and K2 in one chunk). The plain XOR
+    # scan is not timed there (seconds a call at W = 128; K2 is off every
+    # route).
+    wider = {}
+    for words in WIDER_WORDS:
+        qw, cw = scan_inputs(dev, {}, words)
+        b = scan_bound(SCAN_M, SCAN_N, words)
+        row = {}
+        for mode in ("query_nearest", "frame_min"):
+            fn = lambda mode=mode: hamming.corpus_scan_tc(qw, cw, mode)  # noqa: E731
+            fn_plain = lambda mode=mode: hamming.corpus_scan_pm1_plain(  # noqa: E731
+                qw, cw, mode)
+            ms, plain_ms = interleaved_ms(fn, fn_plain, 2)
+            row[f"k4_{mode}"] = {
+                "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms(fn, 5),
+                "bound_ms": b[0], "bound_by": b[1],
+                "grid": hamming.corpus_scan_tc_grid(mode, SCAN_N, dev, words)}
+        fn = lambda: hamming.corpus_min_distance(qw, cw, frame_min=False)  # noqa: E731
+        fn()
+        row["k2"] = {"ms": cuda_ms(fn, 3), "plain_ms": None,
+                     "device_ms": device_ms(fn, 3), "bound_ms": b[0],
+                     "bound_by": b[1]}
+        del cw
+        (qs, ql, c, ln), _ = fragment_inputs(dev, K3_WIDER_SHAPE, SEED + 9, words)
+        fn = lambda: align.fragment_search_batch(qs, ql, c, ln, FRAG_THR)  # noqa: E731
+        fn_plain = lambda: align.fragment_search_batch_plain(  # noqa: E731
+            qs, ql, c, ln, FRAG_THR)
+        ms, plain_ms = interleaved_ms(fn, fn_plain, 2)
+        pairs = int(ql.to(torch.int64).sum() * ln.to(torch.int64).sum())
+        nbytes = sum(t.numel() * t.element_size() for t in (qs, ql, c, ln)) \
+            + 2 * 4 * K3_WIDER_SHAPE[0] * K3_WIDER_SHAPE[2]
+        bk3 = bound(nbytes, 2 * 32 * words * pairs, INT8_TC_OPS_PER_S)
+        row["k3"] = {"shape": list(K3_WIDER_SHAPE), "ms": ms, "plain_ms": plain_ms,
+                     "device_ms": device_ms(fn, 5), "bound_ms": bk3[0],
+                     "bound_by": bk3[1]}
+        wider[words] = row
     return {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_geometries": k1_geo,
-            "k4_w8": k4_w8, "k3_w8": k3_w8,
+            "k4_w8": k4_w8, "k2_w8": k2_w8, "k3_w8": k3_w8, "wider_words": wider,
             "k1_device_ms": sum(k1_items.values()),
             "k1_device_items": sorted(k1_items),
             "k1_grid": fused.fingerprint_grid(FRAMES, HEIGHT, WIDTH),
@@ -1800,6 +2236,12 @@ def main(argv=None) -> int:
         path_launches["service"] = drive_service(work, url, smi)
         path_launches["bench"] = drive_bench(smi)
         path_launches["phash256"] = drive_phash256(work, smi)
+        path_launches["hash32"], wide_err = drive_wide_words(dev, work, smi)
+        k2_err, k3_err, k4_err = (max(e, wide_err) for e in (k2_err, k3_err, k4_err))
+        path_launches["ship_coeffs"] = drive_ship_coeffs(dev, work, smi)
+        path_launches["forward_batch"] = drive_forward_batch(dev, smi)
+        path_launches["multistream"] = drive_multistream(work, smi)
+        path_launches["bench_legs"] = drive_bench_legs(smi)
 
         stream_bound = k1_bound(K1_VALUE_FRAMES)
         times["k1_stream"].update(

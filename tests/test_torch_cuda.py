@@ -488,3 +488,122 @@ def test_scan_wider_after_narrower_widths(dev):
         for mode in ("query_nearest", "frame_min"):
             got = hamming.corpus_scan_tc(q, corpus, mode)
             assert all(g is None or torch.equal(g, w) for g, w in zip(got, want))
+
+
+# -- the word-chunked walks (TVIDZ_HASH_SIZE >= 32; 128 words at dct_size 64) ---
+
+WIDER_WORDS = [26, 32, 42, 128]
+
+
+@pytest.mark.parametrize("words", WIDER_WORDS)
+@pytest.mark.parametrize("m,n", [(128, 70_001), (37, 3000)])
+def test_scans_wider_words_match_plain(dev, words, m, n):
+    """K4's five modes and K2's two entry points past one pass of their
+    shared memory == the plain XOR scan, ties at K4's range edges."""
+    q, corpus, planted = _scan_case(dev, m, n, words=words)
+    want = hamming.corpus_min_distance_plain(q, corpus)
+    for mode in hamming.MODES:
+        got = hamming.corpus_scan_tc(q, corpus, mode)
+        assert all(g is None or torch.equal(g, w) for g, w in zip(got, want)), mode
+        if got[2] is not None:
+            assert {k: int(got[2][k]) for k in planted} == planted
+    assert all(torch.equal(g, w) for g, w in zip(
+        hamming.corpus_min_distance(q, corpus), want))
+    assert torch.equal(hamming.corpus_frame_min_xor(q, corpus), want[0])
+
+
+def test_scan_grid_asked_for_widths_in_turn(dev):
+    """The grid asked at W = 128, 8, 42 and 2 in turn, then each launched:
+    no width's shared-memory opt-in is lowered by a later one."""
+    grids = {w: hamming.corpus_scan_tc_grid("query_nearest", 3000, dev, w)
+             for w in (128, 8, 42, 2)}
+    assert all(g >= 1 for g in grids.values())
+    for words in (128, 8, 42, 2):
+        q, corpus, _ = _scan_case(dev, 130, 3000, words=words)
+        want = hamming.corpus_min_distance_plain(q, corpus)
+        got = hamming.corpus_scan_tc(q, corpus, "query_nearest")
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("words", WIDER_WORDS)
+@pytest.mark.parametrize("thr", [0, 10, 40])
+def test_fragment_search_kernel_wider_words_match_plain(dev, words, thr):
+    rng = np.random.default_rng(words + thr)
+    v, tc, tq_pad = 21, 400, 200
+    corpus = rng.integers(0, 2 ** 32, size=(v, tc, words), dtype=np.uint32)
+    lens = np.full(v, tc, np.int32)
+    lens[3], lens[4] = 100, 0
+    corpus[5] = np.resize(corpus[5, :50], (tc, words))
+    corpus[7, 40:300] = corpus[7, 40]                 # a still scene
+    qs = rng.integers(0, 2 ** 32, size=(2, tq_pad, words), dtype=np.uint32)
+    qlens = np.asarray([200, 77], np.int32)
+    qs[0, :190] = corpus[9, 100:290]
+    qs[0, ::4, 6] ^= np.uint32(0b1011)
+    qs[1, :77] = corpus[5, 20:97]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)  # noqa: E731
+                                   if a.dtype == np.uint32 else a).to(dev)
+    args = [t(a) for a in (qs, qlens, corpus, lens)]
+    ko, ks = align.fragment_search_batch(*args, thr)
+    po, ps = align.fragment_search_batch_plain(*args, thr)
+    assert torch.equal(ko, po) and torch.equal(ks, ps)
+    if thr == 10:
+        assert (int(ks[0, 9]), int(ko[0, 9])) == (190, 100)
+
+
+def test_median_pack_is_the_coefficient_tail(dev):
+    """K1's median-pack entry == the plain coefficient tail on projected
+    coefficients and on planted median ties, one K1 launch a call."""
+    rng = np.random.default_rng(12)
+    luma = rng.integers(0, 256, (64, 90, 160), dtype=np.uint8)
+    real = torch.from_numpy(phash.phash_project_host(luma)).to(dev)
+    ties = torch.round(torch.randn(512, 64, device=dev) * 2)
+    ties[:4] = 1.0
+    ties[4:8, :33] = 5.5
+    low = torch.cat([real, ties])
+    before = fused.K1.launches
+    got = phash.phash_from_coeffs_batched(low)
+    assert fused.K1.launches == before + 1
+    assert torch.equal(got, phash.phash_from_coeffs_plain(low, 8))
+    want = np.stack([golden.phash(f) for f in luma])
+    assert np.array_equal(phash.words_to_numpy(got[:64]), want)
+
+
+def test_forward_batch_is_one_launch_equal_to_plain(dev):
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+
+    model = FingerprintModel(Config(), device=dev)
+    clips = torch.randint(0, 256, (8, 128, 90, 160), dtype=torch.uint8, device=dev)
+    before = fused.K1.launches
+    scores, fps = model.forward_batch(clips)
+    assert fused.K1.launches == before + 1
+    init = fused.initial_fingerprint_carry(90, 160, dev)
+    ps, pf, _ = fused.fingerprint_blocks_batched_plain(
+        list(clips), [init] * 8, [128] * 8, model.left, model.right)
+    assert (scores - ps).abs().max().item() <= 1e-6
+    assert _bits(fps.reshape(-1, 2), pf.reshape(-1, 2)).max() <= 2
+    assert not scores[:, 0].any()
+
+
+def test_fingerprint_streams_on_the_card(dev, tmp_path):
+    """Three uploads through the engine on the card (transfer pump, pinned
+    resolve): each equals its lone analyze bit for bit, one K1 launch a
+    pass."""
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.decode import write_synthetic_y4m
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+    from tvidz_tpu_torch.pipeline.multistream import fingerprint_streams
+
+    paths = []
+    for i, n in enumerate((300, 129, 260)):
+        paths.append(str(tmp_path / f"s{i}.y4m"))
+        write_synthetic_y4m(paths[-1], num_frames=n, height=180, width=320,
+                            cut_frames=(n // 3,), seed=50 + i)
+    model = FingerprintModel(Config(), device=dev)
+    before = fused.K1.launches
+    results, stats = fingerprint_streams(paths, model=model, max_active=3)
+    assert fused.K1.launches - before == stats.dispatches
+    for r in results:
+        cuts, fps = model.analyze_path(r.path)
+        assert r.error is None and r.scene_cuts == cuts
+        assert np.array_equal(r.fingerprints, fps)

@@ -22,6 +22,15 @@ the wrong CTA, a ring slot overwritten too early) shows here without one:
   shift = 32 - bits(32 W) and low = 2^shift - 1 (25 at W = 2, 23 at W = 8),
   kept by its maximum, and the per-(CTA, query) 64-bit key combine.
 
+- The word-chunked walks of rows wider than one pass of shared memory
+  (TVIDZ_HASH_SIZE=32; up to W = 128 at TVIDZ_DCT_SIZE=64): K3 past 23
+  words (tiles from t_begin with no ring, each 64-row window piece's dot
+  summed over chunks of 16 words, the gate on the whole dot), K4 past 37
+  (each 64-row wgmma's dot summed over chunks of 16 words, the epilogue on
+  the whole dot; a grid that grows past the resident CTAs where a range
+  would hold more rows than the key's row field), K2 at every W but 2
+  (256 rows a CTA, 16 queries' distances summed over chunks of 32 words,
+  keys (distance << 8 | row)).
 - K1 (``csrc/fingerprint_block.cu``): S segments of T frames cut into
   contiguous per-CTA ranges; a range starting inside a segment also
   computes its predecessor's mafd (no hash), a segment's frame 0 takes the
@@ -65,9 +74,12 @@ def _t(a):
 
 
 def k3_model(qs, q_lens, corpus, lens, thr, band=128, tile=64, ring=256,
-             stats=None):
+             stats=None, word_chunk=None):
     """(Q, V) offsets and scores as K3 computes them; ``stats`` counts the
-    warp blocks counted pair by pair and those that matched whole."""
+    warp blocks counted pair by pair and those that matched whole. With
+    ``word_chunk`` (the chunked instance, W > 23): tiles start at t_begin
+    with no ring, and each 64-row piece's dots are summed over chunks of
+    that many words before the gate."""
     stats = {"all_matched": 0, "pairwise": 0} if stats is None else stats
     nq, tq_pad, words = qs.shape
     nv, tc, _ = corpus.shape
@@ -92,20 +104,34 @@ def k3_model(qs, q_lens, corpus, lens, thr, band=128, tile=64, ring=256,
                 # multiple of 64 (earlier rows are masked).
                 slots = np.zeros((ring, bits), np.int64)
                 t_first = t_begin - (t_begin + o0) % 64
+                if word_chunk:
+                    t_first = t_begin
                 have = None
                 for t0 in range(t_first, t_end, tile):
                     j0 = t0 + o0
-                    assert j0 % 64 == 0 and all(
-                        (j0 + p) % ring + 64 <= ring for p in range(0, win, 64))
                     t = t0 + np.arange(tile)
                     ok_t = (t >= 0) & (t < q_len)
                     a = np.zeros((tile, bits), np.int64)
                     a[ok_t] = q_pm1[q, t[ok_t]]
-                    for j in range(j0 if have is None else max(j0, have), j0 + win):
-                        slots[j % ring] = c_pm1[v, j] if 0 <= j < c_len else 0
-                    have = j0 + win
-                    w = slots[(j0 + np.arange(win)) % ring]
-                    matched = a @ w.T >= bits - 2 * thr
+                    if word_chunk:
+                        # No ring: each piece's window rows unpacked anew.
+                        j = j0 + np.arange(win)
+                        ok_j = (j >= 0) & (j < c_len)
+                        w = np.zeros((win, bits), np.int64)
+                        w[ok_j] = c_pm1[v, j[ok_j]]
+                        dots = sum(a[:, c:c + 32 * word_chunk]
+                                   @ w[:, c:c + 32 * word_chunk].T
+                                   for c in range(0, bits, 32 * word_chunk))
+                    else:
+                        assert j0 % 64 == 0 and all(
+                            (j0 + p) % ring + 64 <= ring for p in range(0, win, 64))
+                        for j in range(j0 if have is None else max(j0, have),
+                                       j0 + win):
+                            slots[j % ring] = c_pm1[v, j] if 0 <= j < c_len else 0
+                        have = j0 + win
+                        w = slots[(j0 + np.arange(win)) % ring]
+                        dots = a @ w.T
+                    matched = dots >= bits - 2 * thr
                     dd, tt, j = jj - tl, t0 + tl, j0 + jj
                     ok = (matched & (dd >= 0) & (dd < band) & (tt >= 0)
                           & (tt < q_len) & (j >= 0) & (j < c_len))
@@ -227,6 +253,26 @@ def test_k3_decomposition_equals_plain_w8(name, thr):
     assert np.array_equal(scores, want_s.numpy())
 
 
+@pytest.mark.parametrize("words", [26, 32, 42, 128])
+@pytest.mark.parametrize("name,thr", [("periodic", 10), ("short_rows", 10),
+                                      ("thr40", 40), ("static_runs", 10),
+                                      ("not_band_multiple", 10)])
+def test_k3_chunked_decomposition_equals_plain(name, thr, words):
+    """K3's word-chunked instance: tiles from t_begin, the dot of each
+    piece summed over chunks of 16 words, the gate and the counts on the
+    whole dot; whole-block matches (static runs) included."""
+    qs, q_lens, corpus, lens, _ = _k3_case(name, words=words)
+    stats = {"all_matched": 0, "pairwise": 0}
+    offs, scores = k3_model(qs, q_lens, corpus, lens, thr, word_chunk=16,
+                            stats=stats)
+    want_o, want_s = align.fragment_search_batch_plain(
+        _t(qs), _t(q_lens), _t(corpus), _t(lens), thr)
+    assert np.array_equal(offs, want_o.numpy())
+    assert np.array_equal(scores, want_s.numpy())
+    if name == "static_runs":
+        assert stats["all_matched"] > 0
+
+
 @pytest.mark.parametrize("band", [32, 64])
 def test_k3_decomposition_narrow_bands(band):
     """Narrower bands put more band edges (and more tied maxima across
@@ -275,8 +321,19 @@ def _key_form(words):
     return shift, (1 << shift) - 1
 
 
-def k4_model(q, corpus, grid, tile=256, chunk=128):
-    """(frame_min, q_min, q_arg) as K4 computes them on ``grid`` CTAs."""
+def k4_grid(n, words, ctas, tile=256):
+    """The grid K4 launches for an n-row corpus (grid_for): the resident
+    CTAs ``ctas``, at most one a tile, and at least as many as keep every
+    range's rows below the key's row field."""
+    tiles = -(-n // tile)
+    range_tiles = (_key_form(words)[1] - 1) // tile
+    return max(min(tiles, ctas), -(-tiles // range_tiles))
+
+
+def k4_model(q, corpus, grid, tile=256, chunk=128, word_chunk=None):
+    """(frame_min, q_min, q_arg) as K4 computes them on ``grid`` CTAs; with
+    ``word_chunk`` (the chunked instance, W > 37) each dot is summed over
+    chunks of that many words before the epilogue."""
     m, n = q.shape[0], corpus.shape[0]
     bits = 32 * q.shape[1]
     shift, low = _key_form(q.shape[1])
@@ -284,6 +341,7 @@ def k4_model(q, corpus, grid, tile=256, chunk=128):
     tiles = -(-n // tile)
     ctas = min(tiles, grid)
     assert -(-tiles // ctas) * tile < low            # a row offset below low
+    step = 32 * (word_chunk or q.shape[1])
     # Row r of a tile belongs to thread (warp, g) = ((r % 64) // 16, r % 8):
     # per 64-row wgmma a thread holds rows 16 warp + g and 16 warp + g + 8.
     r = np.arange(tile)
@@ -302,7 +360,8 @@ def k4_model(q, corpus, grid, tile=256, chunk=128):
                 valid = rows < n
                 block = np.zeros((tile, bits), np.int64)
                 block[valid] = c_pm1[rows[valid]]
-                dots = np.where(valid, qc @ block.T, -bits)
+                dots = np.where(valid, sum(qc[:, c:c + step] @ block[:, c:c + step].T
+                                           for c in range(0, bits, step)), -bits)
                 fm = (bits - dots.max(axis=0)[valid]) >> 1
                 frame_min[rows[valid]] = fm if q0 == 0 else np.minimum(
                     frame_min[rows[valid]], fm)
@@ -375,14 +434,90 @@ def test_k4_decomposition_equals_plain(name, words):
 
 
 def test_k4_key_forms():
-    """The key keeps (dot + 32 W) / 2 above the row offset at every W the
-    kernel takes, and the W = 2 key is the production one, (dot + 64) <<
-    24 above a 25-bit row field."""
+    """The key keeps (dot + 32 W) / 2 above the row offset at every W a
+    configuration reaches (to 128) and at the kernel's limit, with at least
+    one 256-row tile in the row field, and the W = 2 key is the production
+    one, (dot + 64) << 24 above a 25-bit row field."""
     assert _key_form(2) == (25, (1 << 25) - 1)
     assert _key_form(8) == (23, (1 << 23) - 1)
-    for words in range(1, hamming.K4_MAX_WORDS + 1):
+    assert _key_form(128) == (19, (1 << 19) - 1)
+    for words in [*range(1, 129), hamming.K4_MAX_WORDS]:
         shift, low = _key_form(words)
-        assert (32 * words) << shift < 1 << 32 and low >= 1 << 19
+        assert (32 * words) << shift < 1 << 32 and low - 1 >= 256
+
+
+@pytest.mark.parametrize("words,n,ctas", [(2, 1 << 27, 396), (128, 1 << 27, 132),
+                                          (128, 1 << 27, 396), (4096, 1 << 24, 132)])
+def test_k4_grid_keeps_ranges_below_the_key(words, n, ctas):
+    """At wide W on a large corpus a range of the resident grid would hold
+    more rows than the key's row field (W = 128, 2^27 rows over 132 CTAs:
+    1M rows against 524,287): the grid grows, and every range fits."""
+    grid = k4_grid(n, words, ctas)
+    tiles = -(-n // 256)
+    assert -(-tiles // grid) * 256 < _key_form(words)[1]
+    assert grid == min(tiles, ctas) or -(-tiles // ctas) * 256 >= _key_form(words)[1]
+    if (words, ctas) == (128, 132):
+        assert grid > ctas
+
+
+@pytest.mark.parametrize("words", [42, 128])
+@pytest.mark.parametrize("name", K4_CASES)
+def test_k4_chunked_decomposition_equals_plain(name, words):
+    """K4's word-chunked instance: dots summed over chunks of 16 words,
+    the epilogue (frame_min, keys) on the whole dot, ties at the range
+    edges included."""
+    q, corpus, grid, chunk = _k4_case(name, words=words)
+    got = k4_model(q, corpus, grid, chunk=chunk, word_chunk=16)
+    want = hamming.corpus_min_distance_plain(_t(q), _t(corpus))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+    if name == "ties_across_ranges":
+        edge = 256 * (-(-corpus.shape[0] // 256) // grid)
+        assert list(got[2][:3]) == [edge - 1, 100, edge - 256]
+
+
+def k2_chunked_model(q, corpus, rows=256, q_chunk=16, word_chunk=32):
+    """(frame_min, q_min, q_arg) as K2's chunked instance (every W but 2)
+    computes them:
+    CTAs of ``rows`` rows, ``q_chunk`` queries' distances summed over
+    chunks of ``word_chunk`` words, per (CTA, query) the warp minimum of
+    (distance << 8 | row in the CTA), the CTAs combined by the minimum of
+    (distance << 32 | row)."""
+    m, n = q.shape[0], corpus.shape[0]
+    frame_min = np.full(n, 1 << 30, np.int64)
+    keys = np.full(m, _NO_KEY, dtype=object)
+    popc = np.vectorize(lambda x: bin(int(x)).count("1"))
+    for base in range(0, n, rows):
+        c = corpus[base:base + rows].astype(np.uint64)
+        for q0 in range(0, m, q_chunk):
+            qc = q[q0:q0 + q_chunk].astype(np.uint64)
+            d = np.zeros((qc.shape[0], c.shape[0]), np.int64)
+            for w0 in range(0, q.shape[1], word_chunk):
+                x = qc[:, None, w0:w0 + word_chunk] ^ c[None, :, w0:w0 + word_chunk]
+                d += popc(x).sum(axis=-1)
+            frame_min[base:base + c.shape[0]] = np.minimum(
+                frame_min[base:base + c.shape[0]], d.min(axis=0))
+            local = (d << 8) | np.arange(c.shape[0])[None, :]
+            for i, lk in enumerate(local.min(axis=1)):
+                g = ((int(lk) >> 8) << 32) | (base + (int(lk) & 0xFF))
+                keys[q0 + i] = min(keys[q0 + i], g)
+    return (frame_min.astype(np.int32),
+            np.array([k >> 32 for k in keys], np.int32),
+            np.array([k & 0xFFFFFFFF for k in keys], np.int32))
+
+
+@pytest.mark.parametrize("words", [1, 3, 8, 42, 128])
+def test_k2_chunked_decomposition_equals_plain(words):
+    rng = np.random.default_rng(23 + words)
+    q = rng.integers(0, 2 ** 32, size=(20, words), dtype=np.uint32)
+    corpus = rng.integers(0, 2 ** 32, size=(600, words), dtype=np.uint32)
+    corpus[[511, 256, 3]] = q[1]                     # ties across CTAs
+    corpus[[300, 299]] = q[17] ^ np.uint32(1)        # in the second chunk of queries
+    got = k2_chunked_model(q, corpus)
+    want = hamming.corpus_min_distance_plain(_t(q), _t(corpus))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+    assert (got[2][1], got[2][17]) == (3, 299)
 
 
 @pytest.mark.parametrize("words", [2, 3, 8])

@@ -134,9 +134,44 @@ def test_cli_analyze_phash256_runs_with_jax_refused(tmp_path):
         store.close()
 
 
+def test_cli_analyze_ship_coeffs_runs_with_jax_refused(tmp_path):
+    """``analyze`` under ``TVIDZ_SHIP_DCT_COEFFS=1``: the host projection
+    and the coefficient tail run with jax refused, and the cuts (from the
+    host scorer) are the planted ones."""
+    video = tmp_path / "clip.y4m"
+    _, planted = write_synthetic_y4m(str(video), num_frames=40, height=36,
+                                     width=64, cut_frames=(17,), seed=2)
+    out, refused = _run_cli(tmp_path, "analyze", str(video), "--db",
+                            f"sqlite:///{tmp_path / 'c.db'}", "--compact",
+                            env_extra={"TVIDZ_SHIP_DCT_COEFFS": "1"})
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    result, report = lines[0], lines[-1]
+    assert result["status"] == "done" and result["scene_cuts"] == planted
+    assert report == {"code": 0, "jax": [], "tvidz_tpu": []}
+    assert refused == []
+
+
+def test_bench_ingest_legs_run_with_jax_refused(tmp_path):
+    """The bench's multistream, service and batched-clips legs (through
+    ``pipeline/multistream``, the dispatcher and ``forward_batch``) at tiny
+    sizes with jax refused."""
+    out, refused = _run_cli(
+        tmp_path, "bench", "--sizes", "tiny", "--legs",
+        "boot_restore,batched_clips,e2e_scaling_y4m,service_y4m",
+        env_extra={"TMPDIR": str(tmp_path)})
+    lines = out.strip().splitlines()
+    rec, report = json.loads(lines[-2]), json.loads(lines[-1])
+    assert report == {"code": 0, "jax": [], "tvidz_tpu": []}
+    assert refused == []
+    assert rec["boot_restore_1m_s"] > 0
+    assert set(rec["host"]["e2e_streams_y4m_frames_per_sec"]) == {"1", "2"}
+
+
 @pytest.mark.parametrize("module", ["tvidz_tpu_torch.ops.hashes",
                                     "tvidz_tpu_torch.ops.resize",
-                                    "tvidz_tpu_torch.ops.dct"])
+                                    "tvidz_tpu_torch.ops.dct",
+                                    "tvidz_tpu_torch.pipeline.multistream",
+                                    "tvidz_tpu_torch.bench"])
 def test_hash_modules_import_without_jax(tmp_path, module):
     out, refused = _run_cli(tmp_path, module=module)
     assert json.loads(out.strip().splitlines()[-1]) == {

@@ -103,15 +103,20 @@ def test_unknown_mode_and_wide_hashes_raise():
         hamming.corpus_scan_tc(_t(q), _t(corpus), "fast")
     with pytest.raises(ValueError, match="unknown scan mode"):
         hamming.corpus_scan_pm1_plain(_t(q), _t(corpus), "fast")
-    # Any width the kernels' shared memory holds passes their checks (8
-    # words: phash256); a wider one raises rather than fall back.
+    # Any width a configuration reaches passes the kernels' checks (8
+    # words: phash256; 128: TVIDZ_DCT_SIZE=64 TVIDZ_HASH_SIZE=64); a row
+    # wider than the keys hold raises rather than fall back.
     assert hamming._check_kernel_inputs(
         _t(np.tile(q, 4)), _t(np.tile(corpus, 4)), "tensor-core scan",
+        hamming.K4_MAX_WORDS)[1:] == (8, corpus.shape[0])
+    assert hamming._check_kernel_inputs(
+        _t(np.tile(q, 64)), _t(np.tile(corpus, 64)), "tensor-core scan",
         hamming.K4_MAX_WORDS)[1:] == (8, corpus.shape[0])
     words = hamming.K4_MAX_WORDS + 1
     with pytest.raises(ValueError, match=f"1..{hamming.K4_MAX_WORDS} words"):
         hamming._check_kernel_inputs(
-            _t(np.tile(q[:, :1], words)), _t(np.tile(corpus[:, :1], words)),
+            torch.zeros((1, words), dtype=torch.int32),
+            torch.zeros((1, words), dtype=torch.int32),
             "tensor-core scan", hamming.K4_MAX_WORDS)
 
 

@@ -52,7 +52,13 @@ def _scan_case(words, m=19, n=700, seed=5):
     return q, c
 
 
-@pytest.mark.parametrize("words", [1, 3, 5, 8])
+# Widths the kernels walk in word chunks: 32 (TVIDZ_HASH_SIZE=32) and 128
+# (TVIDZ_DCT_SIZE=64 TVIDZ_HASH_SIZE=64), and 26 and 42, whose last chunk
+# of words is short.
+WIDER_WORDS = [26, 32, 42, 128]
+
+
+@pytest.mark.parametrize("words", [1, 3, 5, 8, *WIDER_WORDS])
 def test_plain_scans_match_pallas_at_any_width(words):
     """K2's and K4's plain versions (every mode) equal the reference's Pallas
     scan (interpret mode) exactly, ties and sentinels included."""
@@ -91,6 +97,46 @@ def test_plain_fragment_search_matches_pallas_at_w8():
         np.testing.assert_array_equal(ps.numpy(), np.asarray(ks))
         np.testing.assert_array_equal(po.numpy(), np.asarray(ko))
     assert ps[0, 2] == 60 and po[0, 2] == 30
+
+
+@pytest.mark.parametrize("words", WIDER_WORDS)
+def test_plain_fragment_search_matches_pallas_at_wider_words(words):
+    """K3's plain version at the word widths K3 walks in chunks, against
+    the reference's fragment kernel (interpret mode): offsets and counts
+    equal at threshold 10 (and at 0 and 4 W, where most pairs match, at
+    W = 26), ties included (video 3 repeats a 20-frame period)."""
+    rng = np.random.default_rng(80 + words)
+    v, tc, tq_pad = 4, 100, 40
+    corpus = rng.integers(0, 2 ** 32, size=(v, tc, words), dtype=np.uint32)
+    corpus[3] = np.resize(corpus[3, :20], (tc, words))
+    lens = np.full(v, tc, np.int32)
+    lens[1] = 30
+    qs = np.full((2, tq_pad, words), SENTINEL, np.uint32)
+    qlens = np.asarray([40, 25], np.int32)
+    qs[0, :40] = corpus[2, 50:90]
+    qs[0, ::3, 1] ^= np.uint32(0b1011)               # 3 bits of damage
+    qs[1, :25] = corpus[3, 7:32]
+    for thr in ((0, 10, 4 * words) if words == WIDER_WORDS[0] else (10,)):
+        po, ps = align.fragment_search_batch(_t(qs), _t(qlens), _t(corpus),
+                                             _t(lens), thr)
+        ko, ks = fragment_search_pallas_batch(
+            jnp.asarray(qs), jnp.asarray(qlens), jnp.asarray(corpus),
+            jnp.asarray(lens), hamming_threshold=thr)
+        np.testing.assert_array_equal(ps.numpy(), np.asarray(ks))
+        np.testing.assert_array_equal(po.numpy(), np.asarray(ko))
+        if thr == 10:
+            assert (int(ps[0, 2]), int(po[0, 2])) == (40, 50)
+            assert (int(ps[1, 3]), int(po[1, 3])) == (25, 7)
+
+
+def test_kernel_word_limits_are_not_shared_memory():
+    """Every width a dct_size / hash_size pair reaches up to 64 x 64 passes
+    the kernels' checks; only their keys bound W."""
+    for w in (1, 2, 8, *WIDER_WORDS):
+        assert w <= min(hamming.K2_MAX_WORDS, hamming.K4_MAX_WORDS,
+                        align.K3_MAX_WORDS)
+    assert min(hamming.K2_MAX_WORDS, hamming.K4_MAX_WORDS,
+               align.K3_MAX_WORDS) > 1 << 17
 
 
 @pytest.mark.parametrize("words", [2, 8])

@@ -11,10 +11,15 @@
 // At W = 2 rows are two 32-bit words read as one 64-bit value: the
 // distance is __popcll of the XOR whichever way the words are packed, as
 // long as query and corpus are packed alike. Any other W runs
-// corpus_scan_wide_kernel: the CTA's rows staged in shared memory word by
-// word (word w of row r at w * kRowsPerBlock + r, no bank conflicts), the
-// query words read by every thread from global memory (one broadcast), and
-// the distance summed over the W words; the argmin keys as at W = 2. frame_min is optional (null pointer), and
+// corpus_scan_chunked_kernel: one row a thread, 256 rows a CTA, the words
+// walked in chunks of kChunkWords staged word-major in shared memory (word
+// w of row r at w * kThreads + r, no bank conflicts on the reads; staged
+// once when a row fits one chunk), the query words read by every thread
+// from global memory (one broadcast), 16 queries' distances held in
+// registers across the chunks, so that the min and the key see only the
+// whole distance (the key packs distance << 8 | row in the CTA; its
+// distance field is 24 bits: W < 2^19). frame_min is optional (null
+// pointer), and
 // tvz_corpus_frame_min computes frame_min alone: its instance skips the
 // per-query key work (warp minimum, atomics, key unpack) entirely — the
 // search_fingerprints contract, raced against K4's frame_min mode.
@@ -47,9 +52,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 4;
 constexpr int kRowsPerBlock = kThreads * kRowsPerThread;   // < 2^16
-// The widest rows: the wide instance's 1,024 rows of W words and 16,384
-// query keys in a block's 227 KB of shared memory.
-constexpr int kMaxWords = (232448 - 16384 * 4) / (kRowsPerBlock * 4);
+// The chunked instance (W != 2): words staged a chunk at a time, distances
+// of kChunkQueries queries held per thread; its key packs (distance << 8 |
+// row in the CTA), so W < 2^19.
+constexpr int kChunkWords = 32;
+constexpr int kChunkQueries = 16;
+constexpr int kMaxKeyWords = (1 << 19) - 1;
+constexpr int kMaxSmem = 232448;             // a block's shared memory on Hopper
 
 template <bool kKeys>
 __global__ void __launch_bounds__(kThreads)
@@ -117,69 +126,67 @@ corpus_scan_kernel(const unsigned long long* __restrict__ q, int M,
 
 template <bool kKeys>
 __global__ void __launch_bounds__(kThreads)
-corpus_scan_wide_kernel(const uint32_t* __restrict__ q, int M,
-                        const uint32_t* __restrict__ corpus, int N, int W,
-                        int32_t* __restrict__ frame_min,
-                        unsigned long long* __restrict__ keys) {
+corpus_scan_chunked_kernel(const uint32_t* __restrict__ q, int M,
+                           const uint32_t* __restrict__ corpus, int N, int W,
+                           int32_t* __restrict__ frame_min,
+                           unsigned long long* __restrict__ keys) {
   extern __shared__ unsigned int s_dyn[];
   unsigned int* s_key = s_dyn;                               // (M,) if kKeys
-  uint32_t* s_c = s_dyn + (kKeys ? M : 0);                   // (W, kRowsPerBlock)
+  uint32_t* s_c = s_dyn + (kKeys ? M : 0);                   // (kChunkWords, kThreads)
   const int tid = threadIdx.x;
   if (kKeys)
     for (int i = tid; i < M; i += kThreads) s_key[i] = 0xffffffffu;
-  const int base = blockIdx.x * kRowsPerBlock;
-  const long long n_words = (long long)min(kRowsPerBlock, N - base) * W;
-  for (int i = tid; i < n_words; i += kThreads) {
-    const int r = i / W, w = i - r * W;
-    s_c[w * kRowsPerBlock + r] = corpus[(size_t)base * W + i];
-  }
-  __syncthreads();
-
-  bool valid[kRowsPerThread];
-  int fmin[kRowsPerThread];
+  const int base = blockIdx.x * kThreads;
+  const int rows = min(kThreads, N - base);
+  const bool valid = tid < rows;
+  int fmin = 0x7fffffff;
+  for (int q0 = 0; q0 < M; q0 += kChunkQueries) {
+    const int qn = min(kChunkQueries, M - q0);
+    int d[kChunkQueries];
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    valid[k] = base + k * kThreads + tid < N;
-    fmin[k] = 0x7fffffff;
-  }
-  for (int m = 0; m < M; ++m) {
-    const uint32_t* qm = q + (size_t)m * W;
-    int d[kRowsPerThread] = {};
-    for (int w = 0; w < W; ++w) {
-      const uint32_t qw = __ldg(qm + w);
+    for (int j = 0; j < kChunkQueries; ++j) d[j] = 0;
+    for (int c0 = 0; c0 < W; c0 += kChunkWords) {
+      const int wc = min(kChunkWords, W - c0);
+      if (q0 == 0 || W > kChunkWords) {      // one chunk: staged once
+        __syncthreads();                     // the last chunk was read
+        for (int i = tid; i < rows * wc; i += kThreads) {
+          const int r = i / wc, w = i - r * wc;
+          s_c[w * kThreads + r] = corpus[(size_t)(base + r) * W + c0 + w];
+        }
+        __syncthreads();
+      }
 #pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k)
-        d[k] += __popc(qw ^ s_c[w * kRowsPerBlock + k * kThreads + tid]);
-    }
-    unsigned int best = 0xffffffffu;
-#pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      if (valid[k]) {
-        fmin[k] = min(fmin[k], d[k]);
-        if (kKeys)
-          best = min(best, ((unsigned)d[k] << 16) | (unsigned)(k * kThreads + tid));
+      for (int j = 0; j < kChunkQueries; ++j) {
+        if (j < qn) {
+          const uint32_t* qm = q + (size_t)(q0 + j) * W + c0;
+          int sum = 0;
+          for (int w = 0; w < wc; ++w) sum += __popc(__ldg(qm + w) ^ s_c[w * kThreads + tid]);
+          d[j] += sum;
+        }
       }
     }
-    if (kKeys) {
-      best = __reduce_min_sync(0xffffffffu, best);
-      if ((tid & 31) == 0 && best != 0xffffffffu) atomicMin(&s_key[m], best);
-    }
-  }
-
-  if (frame_min != nullptr) {
+    // The whole distances: the row's min and the queries' keys.
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      if (valid[k]) frame_min[base + k * kThreads + tid] = fmin[k];
+    for (int j = 0; j < kChunkQueries; ++j) {
+      if (j < qn) {
+        if (valid) fmin = min(fmin, d[j]);
+        if (kKeys) {
+          unsigned int best = valid ? ((unsigned)d[j] << 8) | (unsigned)tid : 0xffffffffu;
+          best = __reduce_min_sync(0xffffffffu, best);
+          if ((tid & 31) == 0 && best != 0xffffffffu) atomicMin(&s_key[q0 + j], best);
+        }
+      }
     }
   }
+  if (frame_min != nullptr && valid) frame_min[base + tid] = fmin;
   if (!kKeys) return;
   __syncthreads();
   for (int m = tid; m < M; m += kThreads) {
     const unsigned int lk = s_key[m];
     if (lk != 0xffffffffu) {
       const unsigned long long g =
-          ((unsigned long long)(lk >> 16) << 32) |
-          (unsigned long long)(unsigned)(base + (int)(lk & 0xffffu));
+          ((unsigned long long)(lk >> 8) << 32) |
+          (unsigned long long)(unsigned)(base + (int)(lk & 0xffu));
       atomicMin(&keys[m], g);
     }
   }
@@ -195,12 +202,13 @@ __global__ void unpack_keys_kernel(const unsigned long long* __restrict__ keys,
   }
 }
 
-// Opts ``fn`` in to ``smem`` bytes of dynamic shared memory where that is
-// above the default 48 KB.
+// Opts ``fn`` in to the most dynamic shared memory a block may have where
+// ``smem`` is above the default 48 KB: never less than an earlier call
+// asked for, so a narrower call never lowers the limit under a wider one.
 cudaError_t allow_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+                              kMaxSmem);
 }
 
 // One scan launch, frame_min into ``frame_min`` if not null and the keys
@@ -226,16 +234,17 @@ cudaError_t scan(const void* q, int M, const void* corpus, int N, int W,
           (int32_t*)frame_min, nullptr);
   } else {
     const size_t smem = sizeof(unsigned int) *
-                        ((with_keys ? (size_t)M : 0) + (size_t)W * kRowsPerBlock);
-    const void* fn = with_keys ? (const void*)corpus_scan_wide_kernel<true>
-                               : (const void*)corpus_scan_wide_kernel<false>;
+                        ((with_keys ? (size_t)M : 0) + (size_t)kChunkWords * kThreads);
+    const int cblocks = (int)(((long long)N + kThreads - 1) / kThreads);
+    const void* fn = with_keys ? (const void*)corpus_scan_chunked_kernel<true>
+                               : (const void*)corpus_scan_chunked_kernel<false>;
     if ((e = allow_smem(fn, smem)) != cudaSuccess) return e;
     if (with_keys)
-      corpus_scan_wide_kernel<true><<<blocks, kThreads, smem, s>>>(
+      corpus_scan_chunked_kernel<true><<<cblocks, kThreads, smem, s>>>(
           (const uint32_t*)q, M, (const uint32_t*)corpus, N, W,
           (int32_t*)frame_min, (unsigned long long*)keys);
     else
-      corpus_scan_wide_kernel<false><<<blocks, kThreads, smem, s>>>(
+      corpus_scan_chunked_kernel<false><<<cblocks, kThreads, smem, s>>>(
           (const uint32_t*)q, M, (const uint32_t*)corpus, N, W,
           (int32_t*)frame_min, nullptr);
   }
@@ -251,12 +260,12 @@ const char* tvz_error_string(int code) {
 }
 
 // q (M, W) and corpus (N, W) int32 rows, 1 <= M <= 16384 and W in
-// [1, kMaxWords] (40: the wide instance's rows in shared memory); frame_min (N,) int32
+// [1, kMaxKeyWords] (the chunked instance's key); frame_min (N,) int32
 // or null; keys (M,) uint64 scratch; q_min, q_arg (M,) int32.
 int tvz_corpus_scan(const void* q, int M, const void* corpus, int N, int W,
                     void* frame_min, void* keys, void* q_min, void* q_arg,
                     void* stream) {
-  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxWords)
+  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxKeyWords)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(keys, 0xff, (size_t)M * sizeof(unsigned long long), s);
@@ -271,7 +280,7 @@ int tvz_corpus_scan(const void* q, int M, const void* corpus, int N, int W,
 // frame_min (N,) int32 only: no keys, no atomics, one launch.
 int tvz_corpus_frame_min(const void* q, int M, const void* corpus, int N, int W,
                          void* frame_min, void* stream) {
-  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxWords ||
+  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxKeyWords ||
       frame_min == nullptr)
     return (int)cudaErrorInvalidValue;
   return (int)scan(q, M, corpus, N, W, frame_min, nullptr, (cudaStream_t)stream);

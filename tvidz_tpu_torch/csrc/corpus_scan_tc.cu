@@ -1,8 +1,9 @@
 // K4 — corpus scan on the tensor cores: M packed query fingerprints of W
 // 32-bit words against N corpus fingerprints, through a ±1 int8 matrix
-// product, in one persistent launch. Any W from 1 to kMaxWords (37); the
-// production W = 2 (64-bit pHash) has an instance of its own, and phash256
-// runs W = 8.
+// product, in one persistent launch. Any W below 2^18 (kMaxKeyWords, the
+// running key's row field); the production W = 2 (64-bit pHash) has an
+// instance of its own, phash256 runs W = 8, and rows wider than one pass
+// holds (kMaxWords, 37) walk their words in chunks (FW = -1, below).
 //
 // Replaces the four MXU variants of the corpus scan in
 // tvidz_tpu/ops/hamming.py, one template mode each:
@@ -71,6 +72,17 @@
 //   so they can neither win nor be stored.
 // - W != 2: the A fragments of kGroupW = 4 k-steps at a time (a wait
 //   between groups keeps their registers few).
+// - W > kMaxWords (TVIDZ_HASH_SIZE >= 40 at TVIDZ_DCT_SIZE=64: 50 to
+//   128 words): the query chunk of every word and a ring of such rows do
+//   not fit a block's shared memory, so the rows walk their words in
+//   chunks of kChunkW = 16. Per 64-row wgmma, each chunk's words of the
+//   128 queries are unpacked into shared memory (64 KB) and the corpus
+//   words come straight from global memory (L1/L2) into the A fragments;
+//   the dot accumulates across the chunks in the wgmma accumulators, and
+//   the epilogue (min, key) sees only the whole dot. The key then leaves
+//   fewer bits to the row offset (19 at W = 128: 524,287 rows a range),
+//   so the grid grows past the resident CTAs where a range would hold
+//   more rows than that (they run in waves; the combine does not care).
 // - One combine: per (CTA, query) one 64-bit atomicMin of
 //   (dist << 32 | row) into a workspace of keys, exact with ties across
 //   CTAs; the last CTA to finish (an atomic ticket) turns the keys into
@@ -105,6 +117,11 @@ constexpr int kMaxSmem = 232448;             // a block's shared memory on Hoppe
 constexpr int kStaticSmem = 2048;            // s_key, s_pm1, s_last (rounded up)
 // The widest rows: the query chunk and a 2-tile ring in shared memory.
 constexpr int kMaxWords = (kMaxSmem - kStaticSmem) / (kQChunk * 32 + 2 * kTileN * 4);
+// Wider rows (FW = -1) hold kChunkW words of the query chunk at a time.
+constexpr int kChunkW = 16;
+// The widest rows at all: the key keeps a row field of at least 9 bits
+// (a 256-row tile in a range), so bits(32 W) <= 23.
+constexpr int kMaxKeyWords = (1 << 18) - 1;
 
 // Bits 4i .. 4i+3 (MSB-first) of a packed word as 4 ±1 bytes (set -> +1):
 // one entry of a 16-entry table in shared memory, indexed by the nibble.
@@ -225,8 +242,9 @@ __host__ __device__ __forceinline__ int ring_stages(int W) {
 }
 
 // Dynamic shared memory: the unpacked query chunk (32 W bytes a query),
-// then the corpus ring.
+// then the corpus ring; past kMaxWords, kChunkW words of the query chunk.
 __host__ __device__ __forceinline__ size_t scan_smem(int W) {
+  if (W > kMaxWords) return (size_t)kQChunk * 32 * kChunkW;
   return (size_t)kQChunk * 32 * W + (size_t)ring_stages(W) * kTileN * 4 * W;
 }
 
@@ -247,8 +265,9 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 }
 
 // FW = 2: the production instance, 64-bit rows, every size fixed at
-// compile time. FW = 0: any W >= 1 at run time, rows of W words, the
-// query A fragments kGroupW k-steps at a time.
+// compile time. FW = 0: any W <= kMaxWords at run time, rows of W words,
+// the query A fragments kGroupW k-steps at a time. FW = -1: W >
+// kMaxWords, the words walked in chunks of kChunkW (header note).
 template <int MODE, int FW>
 __global__ void __launch_bounds__(kThreads, FW == 2 ? 3 : 2)
 corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
@@ -261,14 +280,16 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
   constexpr bool kFmin = MODE != kQueryNearest;
   constexpr bool kArg = MODE != kFrameMin;
   constexpr int kGroupW = FW == 2 ? 2 : 4;     // k-steps per wgmma group
+  constexpr bool kChunked = FW < 0;
   const int W = FW > 0 ? FW : Wrt;
-  const int stages = ring_stages(W);
+  const int Wq = kChunked ? kChunkW : W;       // query words in shared memory
+  const int stages = kChunked ? 2 : ring_stages(W);
   const KeyForm kf = key_form(W);
   const int dot_min = -32 * W;                 // every bit differs
 
   extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* s_q = reinterpret_cast<int8_t*>(smem);                 // kQChunk x 32 W
-  uint32_t* s_ring = reinterpret_cast<uint32_t*>(smem + kQChunk * 32 * W);
+  int8_t* s_q = reinterpret_cast<int8_t*>(smem);                 // kQChunk x 32 Wq
+  uint32_t* s_ring = reinterpret_cast<uint32_t*>(smem + kQChunk * 32 * Wq);
   __shared__ unsigned long long s_key[kQChunk];
   __shared__ int s_pm1[16];
   __shared__ bool s_last;
@@ -283,27 +304,29 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
       (int)((long long)tiles * (blockIdx.x + 1) / gridDim.x) - tile_begin;
   const int range_base = tile_begin * kTileN;    // < 2^31 (launch)
   const unsigned q_addr = (unsigned)__cvta_generic_to_shared(s_q);
-  const unsigned sbo = 256u * W;                 // bytes between 8-query groups
+  const unsigned sbo = 256u * Wq;                // bytes between 8-query groups
+
+  // Words c0 .. c0 + wc - 1 of the chunk's queries as ±1 rows, one row a
+  // thread; rows past M repeat the chunk's first (a duplicate never
+  // changes a minimum, and its key is never stored).
+  auto stage_q = [&](int q0, int qn, int c0, int wc) {
+    const int r = tid;                   // kThreads == kQChunk
+    const uint32_t* qr = q + (size_t)(q0 + (r < qn ? r : 0)) * W + c0;
+    for (int w = 0; w < wc; ++w) {
+      const uint32_t word = qr[w];
+#pragma unroll
+      for (int part = 0; part < 8; ++part)
+        *reinterpret_cast<int*>(s_q + q_offset(r, 32 * w + 4 * part, sbo)) =
+            s_pm1[nibble_index(word, part)];
+    }
+  };
 
   if (tid < 16) s_pm1[tid] = pm1_entry(tid);
   for (int q0 = 0; q0 < M; q0 += kQChunk) {
     const int qn = min(kQChunk, M - q0);
     __syncthreads();                     // the table is set; the last chunk's
                                          // smem reads are done
-    // The chunk's queries as ±1 rows, one row a thread; rows past M repeat
-    // the chunk's first (a duplicate never changes a minimum, and its key
-    // is never stored).
-    {
-      const int r = tid;                 // kThreads == kQChunk
-      const uint32_t* qr = q + (size_t)(q0 + (r < qn ? r : 0)) * W;
-      for (int w = 0; w < W; ++w) {
-        const uint32_t word = qr[w];
-#pragma unroll
-        for (int part = 0; part < 8; ++part)
-          *reinterpret_cast<int*>(s_q + q_offset(r, 32 * w + 4 * part, sbo)) =
-              s_pm1[nibble_index(word, part)];
-      }
-    }
+    if (!kChunked) stage_q(q0, qn, 0, W);
     if (kArg)
       for (int m = tid; m < kQChunk; m += kThreads) s_key[m] = kNoKey;
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -390,10 +413,57 @@ corpus_scan_kernel(const uint32_t* __restrict__ q, int M,
       }
       cp_async_commit();
     };
-    for (int s = 0; s < stages - 1; ++s) issue(s);
-
     int acc[64];
-    for (int i = 0; i < ntiles; ++i) {
+    if (kChunked) {
+      // The word-chunked walk: per 64-row wgmma, each chunk's query words
+      // into shared memory, the rows' words from global memory, the dot
+      // accumulated across chunks; the epilogue on the whole dot.
+      for (int i = 0; i < ntiles; ++i) {
+        const long long tile_base = (long long)(tile_begin + i) * kTileN;
+#pragma unroll 1
+        for (int sub = 0; sub < kSubs; ++sub) {
+          const int r_lo = r_warp + sub * 64;
+          // Rows past N read row N - 1 (masked in the epilogue).
+          const uint32_t* c_lo = corpus + min(tile_base + r_lo, (long long)N - 1) * W;
+          const uint32_t* c_hi = corpus + min(tile_base + r_lo + 8, (long long)N - 1) * W;
+#pragma unroll 1
+          for (int c0 = 0; c0 < W; c0 += kChunkW) {
+            const int wc = min(kChunkW, W - c0);
+            __syncthreads();             // the last chunk's products read s_q
+            stage_q(q0, qn, c0, wc);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            __syncthreads();
+#pragma unroll 1
+            for (int w0 = 0; w0 < wc; w0 += kGroupW) {
+              int a[kGroupW][4];
+#pragma unroll
+              for (int s = 0; s < kGroupW; ++s) {
+                const int w = c0 + (w0 + s < wc ? w0 + s : w0);
+                const uint32_t w_lo = __ldg(c_lo + w), w_hi = __ldg(c_hi + w);
+                a[s][0] = s_pm1[nibble_index(w_lo, t)];
+                a[s][1] = s_pm1[nibble_index(w_hi, t)];
+                a[s][2] = s_pm1[nibble_index(w_lo, 4 + t)];
+                a[s][3] = s_pm1[nibble_index(w_hi, 4 + t)];
+              }
+              fence_operands(acc);
+              wgmma_fence();
+#pragma unroll
+              for (int s = 0; s < kGroupW; ++s)
+                if (w0 + s < wc)         // the same in every thread
+                  wgmma_m64n128k32(acc, a[s], smem_desc(q_addr + 256 * (w0 + s), sbo),
+                                   c0 + w0 + s > 0);
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_operands(acc);
+            }
+          }
+          epilogue(acc, tile_base, r_lo);
+        }
+      }
+    }
+    if (!kChunked)
+      for (int s = 0; s < stages - 1; ++s) issue(s);
+    for (int i = 0; i < (kChunked ? 0 : ntiles); ++i) {
       if (FW == 2) cp_async_wait<4>();   // stages - 2
       else cp_async_wait_n(stages - 2);
       __syncthreads();                   // tile i landed; tile i-1 was read
@@ -485,19 +555,30 @@ const void* kernel_of() {
   return (const void*)corpus_scan_kernel<MODE, FW>;
 }
 
+// The instance a call of W-word rows launches.
+template <int MODE>
+const void* instance_for(int W) {
+  return W == 2 ? kernel_of<MODE, 2>()
+                : (W <= kMaxWords ? kernel_of<MODE, 0>() : kernel_of<MODE, -1>());
+}
+
 // The grid for an N-row corpus of W-word rows: as many CTAs as fit on the
-// card at once (the occupancy API, asked once per process, mode and W), at
-// most one per tile. Where W needs more than 48 KB of shared memory the
-// instance opts in to the most a block may have, so that a narrower W asked
-// later never lowers the limit under a wider one's launches.
+// card at once (the occupancy API, asked once per process, mode and W; one
+// slot for every chunked W), at most one per tile, and more where a range
+// would hold more rows than the key's row field (wide W on a large corpus:
+// the extra CTAs run in waves). Where W needs more than 48 KB of shared
+// memory the instance opts in to the most a block may have, so that a
+// narrower W asked later never lowers the limit under a wider one's
+// launches.
 template <int MODE>
 cudaError_t grid_for(int N, int W, int* grid) {
   static int ctas_by_w[kMaxWords + 1];   // once per process (a benign race)
   const size_t smem = scan_smem(W);
-  if (W < 1 || W > kMaxWords || smem + kStaticSmem > (size_t)kMaxSmem)
+  if (W < 1 || W > kMaxKeyWords || smem + kStaticSmem > (size_t)kMaxSmem)
     return cudaErrorInvalidValue;
-  if (ctas_by_w[W] == 0) {
-    const void* fn = W == 2 ? kernel_of<MODE, 2>() : kernel_of<MODE, 0>();
+  const int slot = W <= kMaxWords ? W : 0;
+  if (ctas_by_w[slot] == 0) {
+    const void* fn = instance_for<MODE>(W);
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -508,14 +589,15 @@ cudaError_t grid_for(int N, int W, int* grid) {
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
     if (e != cudaSuccess) return e;
-    ctas_by_w[W] = sms * (per_sm > 0 ? per_sm : 1);
+    ctas_by_w[slot] = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const int ctas = ctas_by_w[W];
+  const int ctas = ctas_by_w[slot];
   const int tiles = (int)(((long long)N + kTileN - 1) / kTileN);
-  *grid = tiles < ctas ? tiles : ctas;
   // A running key holds a row of its CTA's range below key_form(W).low.
-  if ((long long)((tiles + *grid - 1) / *grid) * kTileN >= (long long)key_form(W).low)
-    return cudaErrorInvalidValue;
+  const long long range_tiles = ((long long)key_form(W).low - 1) / kTileN;
+  const long long need = (tiles + range_tiles - 1) / range_tiles;
+  long long g = tiles < ctas ? tiles : ctas;
+  *grid = (int)(g < need ? need : g);
   return cudaSuccess;
 }
 
@@ -532,8 +614,11 @@ cudaError_t launch(const uint32_t* q, int M, const uint32_t* corpus, int N,
   if (W == 2)
     corpus_scan_kernel<MODE, 2><<<grid, kThreads, smem, s>>>(
         q, M, corpus, N, W, tiles, rows, frame_min, keys, ticket, q_min, q_arg);
-  else
+  else if (W <= kMaxWords)
     corpus_scan_kernel<MODE, 0><<<grid, kThreads, smem, s>>>(
+        q, M, corpus, N, W, tiles, rows, frame_min, keys, ticket, q_min, q_arg);
+  else
+    corpus_scan_kernel<MODE, -1><<<grid, kThreads, smem, s>>>(
         q, M, corpus, N, W, tiles, rows, frame_min, keys, ticket, q_min, q_arg);
   return cudaGetLastError();
 }
@@ -546,7 +631,7 @@ const char* tvz_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// q (M, W) and corpus (N, W) packed int32 rows, W in [1, kMaxWords]; rows
+// q (M, W) and corpus (N, W) packed int32 rows, W in [1, kMaxKeyWords]; rows
 // (N,) int32 table (mode 1 only, else null); frame_min (N,) int32 (modes
 // 0-3, else null); keys (>= M,) uint64 workspace holding all ones and
 // ticket one uint32 holding 0 (modes 0-2 and 4; both are left so again);
@@ -556,7 +641,7 @@ int tvz_corpus_scan_tc(const void* q, int M, const void* corpus, int N, int W,
                        const void* rows, int mode, void* frame_min,
                        void* keys, void* ticket, void* q_min, void* q_arg,
                        void* stream) {
-  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxWords || mode < 0 ||
+  if (M <= 0 || M > 16384 || N <= 0 || W < 1 || W > kMaxKeyWords || mode < 0 ||
       mode > 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

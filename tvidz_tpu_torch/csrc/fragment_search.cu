@@ -2,7 +2,10 @@
 // sequences against a bucket of V corpus sequences, best temporal offset of
 // each query in each video. Rows of W 32-bit words: the design below is
 // written for the production W = 2 (64-bit pHash); any W from 1 to
-// kMaxWords (23) runs fragment_search_wide_kernel (phash256: W = 8).
+// kMaxWords (23) runs fragment_search_wide_kernel (phash256: W = 8), and
+// wider rows (TVIDZ_HASH_SIZE=32 at the default dct_size, 50 to 128 words
+// at TVIDZ_DCT_SIZE=64) fragment_search_chunked_kernel, which walks the
+// words in chunks (its note, below).
 //
 // Replaces tvidz_tpu/ops/align_pallas.py::_fragment_kernel (wrappers
 // fragment_search_pallas_batch / fragment_search_pallas); the contract is
@@ -632,6 +635,199 @@ fragment_search_wide_kernel(const uint32_t* __restrict__ qs,
   }
 }
 
+// -- W > kMaxWords: fragment_search_chunked_kernel ------------------------------
+//
+// A ring of 256 unpacked rows of 32 W bytes does not fit a block's shared
+// memory past 23 words (256 KB at W = 32). This instance keeps the CTA's
+// (query, video, band) work, the wgmma products, the gate on the whole dot
+// and the counting of the kernels above, and changes only the walk over
+// words: per query tile (64 rows from t_begin, no ring, so no alignment)
+// and 64-row window piece, the words go in chunks of kChunkW = 16 — the
+// piece's chunk of window rows unpacked into shared memory (32 KB, zero
+// outside the video), the query rows' words straight from global memory
+// (L1/L2) into the A fragments — and the dot accumulates across the
+// chunks in the wgmma accumulators. Only after the last chunk is the gate
+// dot >= 32 W - 2 thr applied. Each piece's window rows are unpacked anew
+// for every tile (three times as often as the ring would): simple first.
+
+constexpr int kChunkW = 16;             // words of a piece held at a time
+// The widest rows at all: 32 W - 2 thr stays an int32.
+constexpr int kMaxKeyWords = 1 << 24;
+
+__global__ void __launch_bounds__(kThreads, 4)
+fragment_search_chunked_kernel(const uint32_t* __restrict__ qs,
+                               const int32_t* __restrict__ q_lens, int Tq_pad,
+                               const uint32_t* __restrict__ corpus,
+                               const int32_t* __restrict__ lens, int V, int Tc,
+                               int W, int thr, int bands,
+                               unsigned long long* __restrict__ keys) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* s_b = reinterpret_cast<int8_t*>(smem);            // 64 x 32 kChunkW
+  __shared__ int s_cnt[kBand];
+  __shared__ int s_whole[kThreads / 32][kPieces];
+  __shared__ int s_pm1[16];
+  __shared__ unsigned long long s_warp[kBand / 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qi = blockIdx.y;
+  const int v = blockIdx.x / bands;
+  const int d0 = (blockIdx.x % bands) * kBand;
+  const int o0 = d0 - (Tq_pad - 1);         // the band's first offset
+  const int q_len = min(max(q_lens[qi], 0), Tq_pad);
+  const int c_len = min(max(lens[v], 0), Tc);
+  const uint32_t* qrow = qs + (size_t)qi * Tq_pad * W;
+  const uint32_t* crow = corpus + (size_t)v * Tc * W;
+
+  const int t_begin = max(0, -(o0 + kBand - 1));
+  const int t_end = min(q_len, c_len - o0);
+  if (t_begin >= t_end) return;             // the whole CTA: nothing to count
+
+  s_cnt[tid] = 0;                           // kThreads == kBand
+  if (tid < kThreads / 32 * kPieces) (&s_whole[0][0])[tid] = 0;
+  if (tid < 16) s_pm1[tid] = pm1_entry(tid);
+  const int thr_dot = 32 * W - 2 * thr;     // a match: dot >= thr_dot
+  const unsigned sbo = 256u * kChunkW;
+  const unsigned b_addr = (unsigned)__cvta_generic_to_shared(s_b);
+
+  for (int t0 = t_begin; t0 < t_end; t0 += kTileT) {
+    const int j0 = t0 + o0;                  // window row 0
+    const int r_a = 16 * warp + g, t_a = t0 + r_a, t_b = t_a + 8;
+    const bool ok_a = t_a >= 0 && t_a < q_len, ok_b = t_b >= 0 && t_b < q_len;
+    const uint32_t* qa = qrow + (size_t)(ok_a ? t_a : 0) * W;
+    const uint32_t* qb = qrow + (size_t)(ok_b ? t_b : 0) * W;
+#pragma unroll 1
+    for (int p = 0; p < kPieces; ++p) {
+      int acc[32];
+#pragma unroll 1
+      for (int c0 = 0; c0 < W; c0 += kChunkW) {
+        const int wc = min(kChunkW, W - c0);
+        __syncthreads();                     // the table is set; the last
+                                             // chunk's products read s_b
+        {                                    // two threads a window row
+          const int r = tid >> 1, j = j0 + 64 * p + r;
+          const bool ok = j >= 0 && j < c_len;
+          const uint32_t* wp = crow + (size_t)(ok ? j : 0) * W + c0;
+          const int half = (wc + 1) / 2;
+          const int w1 = (tid & 1) ? wc : half;
+          for (int w = (tid & 1) ? half : 0; w < w1; ++w) {
+            const uint32_t word = ok ? __ldg(wp + w) : 0u;
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              *reinterpret_cast<int*>(s_b + ring_offset_w(r, 32 * w + 4 * k, sbo)) =
+                  ok ? s_pm1[nibble_index(word, k)] : 0;
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+#pragma unroll 1
+        for (int w0 = 0; w0 < wc; w0 += kGroupW) {
+          int a[kGroupW][4];
+#pragma unroll
+          for (int s = 0; s < kGroupW; ++s) {
+            const int w = c0 + (w0 + s < wc ? w0 + s : w0);
+            const uint32_t wa = ok_a ? __ldg(qa + w) : 0u, wb = ok_b ? __ldg(qb + w) : 0u;
+            a[s][0] = ok_a ? s_pm1[nibble_index(wa, t4)] : 0;
+            a[s][1] = ok_b ? s_pm1[nibble_index(wb, t4)] : 0;
+            a[s][2] = ok_a ? s_pm1[nibble_index(wa, 4 + t4)] : 0;
+            a[s][3] = ok_b ? s_pm1[nibble_index(wb, 4 + t4)] : 0;
+          }
+#pragma unroll
+          for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int s = 0; s < kGroupW; ++s)
+            if (w0 + s < wc)                 // the same in every thread
+              wgmma_m64n64k32(acc, a[s], smem_desc_w(b_addr + 256 * (w0 + s), sbo),
+                              c0 + w0 + s > 0);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+          for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+#pragma unroll
+          for (int s = 0; s < kGroupW; ++s)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[s][i])::"memory");
+        }
+      }
+
+      // The gate and the counts on the whole dot (as the kernels above).
+      int mx[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i] = acc[i];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2)
+        mx[(i / 2) & 3] = __vimax3_s32(mx[(i / 2) & 3], acc[i], acc[i + 1]);
+      const int m = max(__vimax3_s32(mx[0], mx[1], mx[2]), mx[3]);
+      if (__any_sync(0xffffffffu, m >= thr_dot)) {
+        int mn[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mn[i] = acc[i];
+#pragma unroll
+        for (int i = 0; i < 32; i += 2)
+          mn[(i / 2) & 3] = __vimin3_s32(mn[(i / 2) & 3], acc[i], acc[i + 1]);
+        if (__all_sync(0xffffffffu, min(__vimin3_s32(mn[0], mn[1], mn[2]), mn[3]) >= thr_dot)) {
+          if (t0 + 16 * warp >= 0 && t0 + 16 * warp + 16 <= q_len &&
+              j0 + 64 * p >= 0 && j0 + 64 * p + 64 <= c_len) {
+            if (lane == 0) ++s_whole[warp][p];
+            continue;
+          }
+          const int r_lo = max(16 * warp, -t0), r_hi = min(16 * warp + 16, q_len - t0);
+          const int c_lo = max(64 * p, -j0), c_hi = min(64 * p + 64, c_len - j0);
+          const int d_hi = min(kBand - 1, c_hi - 1 - r_lo);
+          for (int dd = max(0, c_lo - r_hi + 1) + lane; dd <= d_hi; dd += 32) {
+            const int n = min(r_hi, c_hi - dd) - max(r_lo, c_lo - dd);
+            if (n > 0) atomicAdd(&s_cnt[dd], n);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int tl = 16 * warp + g + 8 * (e >> 1);
+              const int jj = 64 * p + 8 * c + 2 * t4 + (e & 1);
+              const int dd = jj - tl, t = t0 + tl, j = j0 + jj;
+              if (acc[4 * c + e] >= thr_dot && dd >= 0 && dd < kBand && t >= 0 &&
+                  t < q_len && j >= 0 && j < c_len)
+                atomicAdd(&s_cnt[dd], 1);
+            }
+        }
+      }
+    }
+  }
+  // The whole blocks: each adds its trapezoid (as fragment_search_kernel).
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) {
+    const int n = s_whole[warp][p];
+    if (n == 0) continue;
+    const int base = 64 * p - 16 * warp;
+    for (int dd = max(0, base - 15) + lane; dd <= min(kBand - 1, base + 63); dd += 32) {
+      const int x = dd - base;
+      atomicAdd(&s_cnt[dd], n * (min(16, 64 - x) - max(0, -x)));
+    }
+  }
+  __syncthreads();
+
+  const int c = s_cnt[tid];
+  unsigned long long key =
+      c > 0 ? ((unsigned long long)c << 32) | (unsigned long long)(0x7fffffff - (d0 + tid))
+            : 0ull;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, s);
+    key = other > key ? other : key;
+  }
+  if (lane == 0) s_warp[warp] = key;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long best = s_warp[0];
+#pragma unroll
+    for (int w = 1; w < kBand / 32; ++w) best = s_warp[w] > best ? s_warp[w] : best;
+    if (best > kZeroKey) atomicMax(&keys[(size_t)qi * V + v], best);
+  }
+}
+
 __global__ void unpack_keys_kernel(const unsigned long long* __restrict__ keys,
                                    int n, int Tq_pad,
                                    int32_t* __restrict__ offs,
@@ -653,15 +849,15 @@ const char* tvz_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// qs (Q, Tq_pad, W) and corpus (V, Tc, W) int32 rows, W in [1, kMaxWords]
-// (23); q_lens (Q,), lens (V,) int32; keys (Q, V) uint64 scratch; offs,
+// qs (Q, Tq_pad, W) and corpus (V, Tc, W) int32 rows, W in [1,
+// kMaxKeyWords]; q_lens (Q,), lens (V,) int32; keys (Q, V) uint64 scratch; offs,
 // scores (Q, V) int32.
 int tvz_fragment_search(const void* qs, const void* q_lens, int Q, int Tq_pad,
                         const void* corpus, const void* lens, int V, int Tc,
                         int W, int thr, void* keys, void* offs, void* scores,
                         void* stream) {
   if (Q <= 0 || Q > 65535 || Tq_pad <= 0 || V <= 0 || Tc <= 0 || W < 1 ||
-      W > kMaxWords)
+      W > kMaxKeyWords)
     return (int)cudaErrorInvalidValue;
   const long long nd = (long long)Tq_pad + Tc - 1;
   const long long bands = (nd + kBand - 1) / kBand;
@@ -682,12 +878,20 @@ int tvz_fragment_search(const void* qs, const void* q_lens, int Q, int Tq_pad,
         (const uint32_t*)qs, (const int32_t*)q_lens, Tq_pad,
         (const uint32_t*)corpus, (const int32_t*)lens, V, Tc, thr, (int)bands,
         (unsigned long long*)keys);
+  } else if (W > kMaxWords) {
+    fragment_search_chunked_kernel<<<grid, kThreads, (size_t)64 * 32 * kChunkW, s>>>(
+        (const uint32_t*)qs, (const int32_t*)q_lens, Tq_pad,
+        (const uint32_t*)corpus, (const int32_t*)lens, V, Tc, W, thr,
+        (int)bands, (unsigned long long*)keys);
   } else {
     const size_t smem = wide_smem(W);
     const void* fn = W == 8 ? (const void*)fragment_search_wide_kernel<8>
                             : (const void*)fragment_search_wide_kernel<0>;
+    // The most a block may have, so a narrower W never lowers the limit
+    // under a wider one's launch.
     if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem - kStaticSmemWide);
       if (e != cudaSuccess) return (int)e;
     }
     if (W == 8)

@@ -17,7 +17,9 @@ of its tree, ``align.py:72-85``, is not copied).
 ``fragment_search_batch`` / ``fragment_search`` launch kernel K3
 (``csrc/fragment_search.cu``, int8 ±1 products on the tensor cores, rows of
 any W from 1 to ``K3_MAX_WORDS`` words: W = 2 for the 64-bit pHash, 8 for
-phash256) on CUDA tensors and run the plain versions
+phash256, 32 at ``TVIDZ_HASH_SIZE=32``, 128 at ``TVIDZ_DCT_SIZE=64
+TVIDZ_HASH_SIZE=64``; past 23 words the kernel walks them in chunks) on
+CUDA tensors and run the plain versions
 (``fragment_search_batch_plain`` / ``fragment_core``) on CPU tensors; there
 is no fallback between the two. Fingerprints are int32 bit-views of the
 reference's uint32 words.
@@ -43,9 +45,10 @@ K3 = backend.register(backend.Kernel(
     },
 ))
 
-# The widest rows K3 takes (kMaxWords in its source): a 256-row ring of
-# 32·W-byte unpacked rows and three stage buffers in shared memory.
-K3_MAX_WORDS = 23
+# The widest rows K3 takes (kMaxKeyWords in its source): its match gate
+# 32·W - 2·thr stays an int32. Shared memory sets no limit (wide rows walk
+# their words in chunks).
+K3_MAX_WORDS = 1 << 24
 # int32 elements per step of the plain versions (bounds their memory: the
 # Hamming matrix and the skewed match matrix of a group of videos).
 _PLAIN_ELEMS = 1 << 22
@@ -165,7 +168,7 @@ def _fragment_search_cuda(q_fps, q_lens, corpus, lens, thr):
     v, tc, _ = corpus.shape
     if not 1 <= w <= K3_MAX_WORDS:
         raise ValueError(f"the fragment-search kernel takes rows of "
-                         f"1..{K3_MAX_WORDS} words (its shared memory), got {w}")
+                         f"1..{K3_MAX_WORDS} words, got {w}")
     backend.require(q_fps, "queries", torch.int32, (qn, tq_pad, w), dev)
     backend.require(q_lens, "query lengths", torch.int32, (qn,), dev)
     backend.require(corpus, "corpus", torch.int32, (v, tc, w), dev)

@@ -17,6 +17,9 @@ gives what bounds it on the H100 and how its design answers that):
 
 On CPU tensors they run the plain PyTorch versions (``*_plain``). There is
 no fallback between the two: a CUDA tensor the kernel cannot take raises.
+Under ``ship_dct_coeffs`` the payload is host-projected coefficients and
+``fingerprint_block(s_batched)_coeffs`` run only the median threshold and
+pack (K1's ``tvz_median_pack`` entry on CUDA, ``median_pack_cuda``).
 
 K1 computes the DCT pHash at hash_size 8 (the Pallas kernel is 64-bit only,
 ``fused_pallas.py:165``). Every other fingerprint configuration — ahash,
@@ -376,10 +379,11 @@ def fingerprint_stream(luma: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def median_pack_cuda(low: torch.Tensor) -> torch.Tensor:
-    """K1's own median-threshold + pack device code on given (N, 64) float32
-    coefficients -> (N, 2) int32 words. For checking its tie handling bit
-    for bit against ``phash.median_threshold_bits`` + ``pack_bits_i32``;
-    not a launch of the fingerprint block."""
+    """K1's own median-threshold + pack device code (``tvz_median_pack``,
+    one CTA a row) on given (N, 64) float32 coefficients -> (N, 2) int32
+    words: the device tail of the coefficient-shipping path
+    (``phash.phash_from_coeffs_batched``), one K1 launch, held bit for bit
+    against ``phash.phash_from_coeffs_plain``."""
     if not low.is_cuda:
         raise ValueError("median_pack_cuda takes a CUDA tensor")
     n = low.shape[0]
@@ -387,4 +391,50 @@ def median_pack_cuda(low: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, 2), dtype=torch.int32, device=low.device)
     K1.call("tvz_median_pack", backend.ptr(low), n, backend.ptr(out),
             backend.stream_ptr(low.device))
+    K1.launches += 1
     return out
+
+
+# -- coefficient shipping (PipelineConfig.ship_dct_coeffs) --------------------
+
+_COEFF_SHAPE_MSG = ("coeff payload must be (T, hash²), got {} — was a raw luma "
+                    "block passed to a ship_dct_coeffs model?")
+
+
+def fingerprint_block_coeffs(coeffs: torch.Tensor, carry: FingerprintCarry,
+                             hash_size: int = 8) -> Result:
+    """The single-stream coefficient forward (tvidz_tpu/ops/fused.py:130):
+    (T, hash²) float32 host-projected coefficients -> (zero (T,) scores,
+    (T, words) int32 hashes, the carry untouched). Scores come from the
+    host in this mode (``NativeSceneScorer``'s mafd, else its host
+    fallback); the scene recurrence never runs."""
+    if coeffs.ndim != 2:
+        raise ValueError(_COEFF_SHAPE_MSG.format(tuple(coeffs.shape)))
+    from tvidz_tpu_torch.ops.phash import phash_from_coeffs_batched
+
+    fps = phash_from_coeffs_batched(coeffs, hash_size)
+    return (torch.zeros((coeffs.shape[0],), dtype=torch.float32,
+                        device=coeffs.device), fps, carry)
+
+
+def fingerprint_blocks_batched_coeffs(coeffs, carries, valid_ts,
+                                      hash_size: int = 8):
+    """K streams' (T, hash²) coefficient blocks (a sequence or one (K, T,
+    hash²) tensor) in one pass (tvidz_tpu/ops/fused.py:150): ((K, T) zero
+    scores, (K, T, words) hashes, the K carries untouched); ``valid_ts`` is
+    unused (the pad rows' hashes are sliced off by the caller). On CUDA at
+    hash_size 8: one K1 median-pack launch over the K·T rows."""
+    del valid_ts
+    if isinstance(coeffs, (tuple, list)):
+        if any(c.ndim != 2 for c in coeffs):
+            raise ValueError(_COEFF_SHAPE_MSG.format(
+                [tuple(c.shape) for c in coeffs]))
+        coeffs = torch.stack(list(coeffs))
+    if coeffs.ndim != 3:
+        raise ValueError(_COEFF_SHAPE_MSG.format(tuple(coeffs.shape)))
+    from tvidz_tpu_torch.ops.phash import phash_from_coeffs_batched
+
+    k, t, n = coeffs.shape
+    fps = phash_from_coeffs_batched(coeffs.reshape(k * t, n), hash_size)
+    return (torch.zeros((k, t), dtype=torch.float32, device=coeffs.device),
+            fps.reshape(k, t, -1), tuple(carries))

@@ -25,9 +25,11 @@ and ``query_nearest`` modes, which won the race on the card against K2
 
 The corpus layout is row-major (N, W) — the host mirror's own layout. The
 reference's word-major (W, N) device layout served TPU lanes; the kernels
-read rows of 4·W bytes instead. Both kernels take any word width W (the
-64-bit pHash is W = 2, phash256 W = 8) up to what their shared memory
-holds (``K2_MAX_WORDS``, ``K4_MAX_WORDS``), and a launch takes at most
+read rows of 4·W bytes instead. Both kernels take any word width W the
+reference's configurations reach (the 64-bit pHash is W = 2, phash256
+W = 8, ``TVIDZ_DCT_SIZE=64 TVIDZ_HASH_SIZE=64`` W = 128): rows wider than
+one pass of their shared memory walk their words in chunks, and only their
+keys bound W (``K2_MAX_WORDS``, ``K4_MAX_WORDS``). A launch takes at most
 ``_MAX_QUERIES`` queries: every wrapper splits more into chunks
 (``max_queries``) and combines them exactly — frame_min is the elementwise
 min over chunks, q_min and q_arg are concatenated (q_arg indexes the corpus,
@@ -80,11 +82,12 @@ _PLAIN_PAIRS = 1 << 20
 _BIG = 1 << 30
 # The kernels' largest query count a launch (the wrappers split more).
 _MAX_QUERIES = 16384
-# The widest rows each kernel takes (kMaxWords in its source): K2's wide
-# instance holds 1,024 rows of W words and 16,384 keys in shared memory;
-# K4 a 128-query chunk of 32·W bytes a query and a ring of two 256-row tiles.
-K2_MAX_WORDS = 40
-K4_MAX_WORDS = 37
+# The widest rows each kernel takes (kMaxKeyWords in its source), set by
+# its keys, not its shared memory: K2's chunked instance packs a distance
+# of up to 32·W into 24 bits, K4's running key leaves at least 9 bits (a
+# 256-row tile) to the row offset beside bits(32·W).
+K2_MAX_WORDS = (1 << 19) - 1
+K4_MAX_WORDS = (1 << 18) - 1
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -184,7 +187,7 @@ def _check_kernel_inputs(q, corpus, what, max_words):
     m, n, w = q.shape[0], corpus.shape[0], q.shape[1]
     if not 1 <= w <= max_words:
         raise ValueError(f"the {what} kernel takes rows of 1..{max_words} words "
-                         f"(its shared memory), got {w}")
+                         f"(its keys), got {w}")
     backend.require(q, "queries", torch.int32, (m, w), dev)
     backend.require(corpus, "corpus", torch.int32, (n, w), dev)
     if not 1 <= m <= _MAX_QUERIES or not 1 <= n < 2 ** 31:

@@ -13,6 +13,14 @@ operator and flip median-adjacent bits. The fingerprint-block kernel
 Packed words are int32 bit-views of the reference's uint32 words on the
 device (``torch.uint32`` has partial op support); the host boundary views
 them back as ``np.uint32``.
+
+The coefficient split (``PipelineConfig.ship_dct_coeffs``, the reference's
+``phash_project_host`` / ``phash_from_coeffs_batched``): the host computes
+each frame's low DCT coefficients in numpy with the golden model's own
+dtypes and order of operations (bit-exact to ``golden.phash`` by
+construction), and the device runs only the median threshold and pack —
+K1's ``tvz_median_pack`` entry on CUDA at hash_size 8
+(``ops/fused.median_pack_cuda``), the plain version otherwise.
 """
 
 from __future__ import annotations
@@ -91,6 +99,64 @@ def phash_batched(luma: torch.Tensor, left: torch.Tensor,
                          "bits, not a multiple of 32")
     low = low_coefficients(luma, left, right)
     return pack_bits_i32(median_threshold_bits(low, hash_size))
+
+
+_PROJECT_CACHE: dict = {}
+
+
+def _project_operators_np(h: int, w: int, dct_size: int):
+    """The golden model's own resize and DCT matrices (area_resize_matrix
+    float32, dct_matrix float32 cast to float64: exactly its dtypes), cached
+    per geometry (tvidz_tpu/ops/phash.py:129)."""
+    key = (h, w, dct_size)
+    ops = _PROJECT_CACHE.get(key)
+    if ops is None:
+        ph = golden.area_resize_matrix(h, dct_size)            # f32
+        pw = golden.area_resize_matrix(w, dct_size)            # f32
+        d64 = golden.dct_matrix(dct_size).astype(np.float64)   # f32 -> f64
+        ops = _PROJECT_CACHE[key] = (ph, pw, d64)
+    return ops
+
+
+def phash_project_host(luma: np.ndarray, dct_size: int = 32,
+                       hash_size: int = 8) -> np.ndarray:
+    """(T, H, W) uint8/float luma -> (T, hash_size²) float32 low-frequency
+    DCT coefficients on the host (tvidz_tpu/ops/phash.py:145): per frame
+    golden.area_resize in float32, ``(ph @ x) @ pw.T``, then golden.dct2 in
+    float64, ``(d @ small) @ d.T``, cast to float32 — the golden sequence,
+    so the packed bits equal ``golden.phash``."""
+    t, h, w = luma.shape
+    ph, pw, d64 = _project_operators_np(h, w, dct_size)
+    x32 = np.asarray(luma, np.float32)
+    out = np.empty((t, hash_size * hash_size), np.float32)
+    for i in range(t):
+        small = (ph @ x32[i]) @ pw.T                         # golden.area_resize
+        coeffs = (d64 @ small.astype(np.float64)) @ d64.T    # golden.dct2
+        out[i] = coeffs.astype(np.float32)[:hash_size, :hash_size].ravel()
+    return out
+
+
+def phash_from_coeffs_plain(low: torch.Tensor, hash_size: int = 8
+                            ) -> torch.Tensor:
+    """Plain version of the coefficient tail: (N, hash_size²) float32 ->
+    (N, words) int32, median threshold and MSB-first pack."""
+    return pack_bits_i32(median_threshold_bits(low, hash_size))
+
+
+def phash_from_coeffs_batched(low: torch.Tensor, hash_size: int = 8
+                              ) -> torch.Tensor:
+    """(N, hash_size²) float32 projected coefficients -> (N, words) int32
+    (tvidz_tpu/ops/phash.py:171): on a CUDA tensor at hash_size 8 one launch
+    of K1's median-pack entry, else ``phash_from_coeffs_plain`` (the
+    reference's XLA tail, plain torch on either device)."""
+    if low.ndim != 2 or low.shape[1] != hash_size * hash_size:
+        raise ValueError(f"coefficients must be (N, {hash_size * hash_size}), "
+                         f"got {tuple(low.shape)}")
+    if low.is_cuda and hash_size == 8:
+        from tvidz_tpu_torch.ops.fused import median_pack_cuda
+
+        return median_pack_cuda(low.contiguous())
+    return phash_from_coeffs_plain(low, hash_size)
 
 
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:

@@ -52,7 +52,7 @@ class _Future(Future):
 
 
 class _Item(NamedTuple):
-    luma: torch.Tensor                  # (T, H, W) uint8 on the device
+    luma: torch.Tensor                  # the payload block on the device
     carry: object
     valid_t: int
     future: _Future
@@ -116,8 +116,9 @@ class SharedBlockDispatcher:
     # -- submission -----------------------------------------------------------
 
     def submit(self, buf: np.ndarray, carry, valid_t: int) -> _Future:
-        """``buf`` is the block padded to (block_frames, H, W) uint8,
-        ``valid_t`` its real frame count. The future resolves to
+        """``buf`` is the block's device payload padded to block_frames
+        rows — (T, H, W) uint8 luma, or (T, hash²) float32 coefficients
+        under ship_dct_coeffs — and ``valid_t`` its real frame count. The future resolves to
         (scores (T,) float32 numpy, fps (T, words) uint32 numpy, new carry
         on the device)."""
         fut = _Future()
@@ -164,7 +165,7 @@ class SharedBlockDispatcher:
 
     def _run(self, batch):
         """One pass: forward_streams, then one D2H copy of every block's
-        scores (as int32 bits) and hashes."""
+        scores (as int32 bits) and hashes; returns each block's result."""
         if self._copy_stream is not None:
             stream = torch.cuda.current_stream(self.device)
             for item in batch:
@@ -179,10 +180,9 @@ class SharedBlockDispatcher:
         host = packed.cpu().numpy()                        # (K, T, 1 + words)
         self.passes += 1
         self.blocks += len(batch)
-        for j, item in enumerate(batch):
-            item.future.set((host[j, :, 0].view(np.float32),
-                             np.ascontiguousarray(host[j, :, 1:]).view(np.uint32),
-                             carries[j]))
+        return [(host[j, :, 0].view(np.float32),
+                 np.ascontiguousarray(host[j, :, 1:]).view(np.uint32), carries[j])
+                for j in range(len(batch))]
 
     def _loop(self) -> None:
         while not self._stop.is_set():
@@ -192,8 +192,9 @@ class SharedBlockDispatcher:
                 continue
             batch = self._take_batch(first)
             self._pass_started = time.monotonic()
+            done = []
             try:
-                self._run(batch)
+                done = list(zip(batch, self._run(batch)))
             except Exception as e:  # noqa: BLE001 — isolate, keep serving
                 log("dispatcher", f"batched pass failed ({len(batch)} "
                                   f"blocks): {e}; retrying each block alone")
@@ -202,12 +203,16 @@ class SharedBlockDispatcher:
                 else:
                     for item in batch:
                         try:
-                            self._run([item])
+                            done += list(zip([item], self._run([item])))
                         except Exception as e1:  # noqa: BLE001
                             log("dispatcher", f"isolated block failed: {e1}")
                             item.future.fail(e1)
             finally:
                 self._pass_started = None
+            # The pass is over (pass_age_s reads 0) before any submitter
+            # wakes on its future.
+            for item, result in done:
+                item.future.set(result)
 
     def pass_age_s(self) -> float:
         """Seconds the current pass has been in flight (0 = idle)."""

@@ -109,8 +109,13 @@ def warmup_device(config: Config, device) -> None:
     scores.cpu()
     if config.pipeline.shared_dispatcher:
         SharedBlockDispatcher(model).warm()
+    # example_payload is the production forward's shape in both modes (raw
+    # luma, or projected coefficients under ship_dct_coeffs).
     log("entrypoint", f"device warm on {device}: kernels built, block shape "
-                      + "x".join(str(d) for d in model.example_payload().shape))
+                      + "x".join(str(d) for d in model.example_payload().shape)
+                      + (" (coeff payloads)" if model.ship_coeffs else "")
+                      + (" (+all batched buckets)"
+                         if config.pipeline.shared_dispatcher else ""))
 
 
 def main(argv=None) -> None:
