@@ -28,6 +28,11 @@ fingerprints through K3 and K4), then:
 - ``bench_legs``: the bench's ingest legs at ``--sizes smoke``, and on a
   line of its own (``decoders``) what the machine offers to write and
   decode their MJPEG and H.264 fixtures;
+- ``mesh``: the corpus sharded over ``make_mesh(devices=[cuda:0] * 8)``
+  (data 2, corpus 4; with two or more cards, over them too) — MeshCorpus
+  against DeviceCorpus on the smoke store, the mesh scans against
+  single-card K4 at 2^24 rows, ``multichip_analysis_step`` against the
+  per-clip single-card path, the analyzer's and the service's verdicts;
 
 and time it. Launch counts are zeroed before and read after each of those
 paths.
@@ -1669,11 +1674,14 @@ def _coeff_ties(dev, n: int = 4096):
     return torch.from_numpy(low).to(dev)
 
 
-def _service_uploads(work: str, tag: str, cfg, uploads, copy_of: str):
+def _service_uploads(work: str, tag: str, cfg, uploads, copy_of: str,
+                     corpus=None):
     """The in-process service on a fresh store over the fake S3 -> SQS path,
-    shared dispatcher on: ``uploads`` ({name: path}) posted at once, then
+    shared dispatcher on, on ``corpus`` (default: the app's own
+    DeviceCorpus): ``uploads`` ({name: path}) posted at once, then
     ``copy_of``'s renamed copy; returns ({name: status}, K1 launches,
-    dispatcher passes), the launch count zeroed just before."""
+    dispatcher passes), the launch counts zeroed just before (and left
+    as they were when it returns)."""
     from tvidz_tpu_torch import backend
     from tvidz_tpu_torch.corpus.store import Store
     from tvidz_tpu_torch.ops import fused
@@ -1686,7 +1694,7 @@ def _service_uploads(work: str, tag: str, cfg, uploads, copy_of: str):
     s3.create_bucket(cfg.service.s3_bucket)
     s3.configure_notification(sqs, cfg.service.sqs_queue)
     app = create_app(config=cfg, store=Store(f"sqlite:///{root}/s.db"), s3=s3,
-                     sqs=sqs, device="cuda")
+                     sqs=sqs, device="cuda", corpus=corpus)
     client = app.wsgi.test_client()
 
     def verdict(name, timeout=300):
@@ -1919,6 +1927,329 @@ def drive_bench_legs(smi: str) -> dict:
     phase("bench_legs", card=card, launches=launches, record=rec)
     # What writes and decodes the MJPEG and H.264 fixtures on this machine.
     phase("decoders", card=card, **rec["host"]["decoders"])
+    return launches
+
+
+MESH_CELLS = 8                  # the repeated-device mesh: (data 2, corpus 4)
+MESH_SCAN_N = 1 << 24           # the bench's 16m verdict shape: 128 MB at W=2
+STEP_CLIPS, STEP_TILES = 4, 4   # the step: B clips x NT tiles of FRAMES frames
+STEP_TS_ROWS, STEP_FP_ROWS = 8192, 1 << 20
+
+
+def _mesh_shape(mesh) -> list:
+    from tvidz_tpu_torch.parallel.mesh import CORPUS_AXIS, DATA_AXIS
+
+    return [mesh.shape[DATA_AXIS], mesh.shape[CORPUS_AXIS]]
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def _mesh_corpus_checks(mesh, url: str, tag: str, total: dict) -> dict:
+    """MeshCorpus against the single-card DeviceCorpus, both loaded from the
+    smoke store (2^20 fingerprints, 8192 videos' timestamps, the 256 x 4096
+    alignment bucket), with exact copies planted on both sides of each
+    shard edge inside the live rows: match_timestamps, search_fingerprints,
+    nearest_video_counts (128 and 40,000 queries; the raw (q_min, q_arg)
+    too) and locate_fragments over 8 queries must be equal; K4 runs once
+    a shard per launch's worth of queries, K3 once a (data, corpus) tile
+    per occupied bucket. Only the mesh side's launches count."""
+    import numpy as np
+
+    from tvidz_tpu_torch import backend
+    from tvidz_tpu_torch.corpus.device_corpus import DeviceCorpus
+    from tvidz_tpu_torch.corpus.store import Store
+    from tvidz_tpu_torch.ops import align, hamming
+    from tvidz_tpu_torch.parallel.mesh_corpus import MeshCorpus
+
+    data, shards = _mesh_shape(mesh)
+    store = Store(url)
+    try:
+        single, meshc = DeviceCorpus(device=mesh.home), MeshCorpus(mesh)
+        for c in (single, meshc):
+            c.load(store)
+        check(single._fp_cap == meshc._fp_cap and single._ts_cap == meshc._ts_cap,
+              f"{tag}: capacities differ")
+        rows = meshc._fp_cap // shards
+        edges = [e for e in range(rows, meshc._fp_count, rows)]
+        rng = np.random.default_rng(SEED + 30)
+        planted = rng.integers(0, 2 ** 32, size=(len(edges), 2), dtype=np.uint32)
+        for c in (single, meshc):
+            for e, row in zip(edges, planted):
+                c._fp[e - 1] = c._fp[e] = row
+        qvid = int(single._fp_vid[: single._fp_count].max())   # the last upload
+        ts_row = single._vid_to_row[qvid]
+        q_ts = single._ts[ts_row, : single._ts_len[ts_row]].tolist()
+        fps = store.get_fingerprints(qvid)
+        q = np.concatenate([fps[:120], planted])
+        long_q = np.concatenate([rng.integers(0, 2 ** 32, size=(40_000 - fps.shape[0], 2),
+                                              dtype=np.uint32), fps])
+        frags = [store.get_fingerprints(v)[100 * v: 100 * v + 700] for v in range(1, 9)]
+        out = {}
+
+        def both(what, call, k4=0, k3=0):
+            want = call(single)
+            backend.reset_launch_counts()
+            got = call(meshc)
+            launches = {k.name: k.launches for k in backend.KERNELS}
+            check(got == want, f"{tag} {what}: mesh {str(got)[:300]} != "
+                               f"single card {str(want)[:300]}")
+            check(launches[hamming.K4.name] == k4 and launches[align.K3.name] == k3,
+                  f"{tag} {what}: launches {launches}, expected K4 {k4}, K3 {k3}")
+            _add_launches(total, launches)
+            out[what] = {"launches": {hamming.K4.name: k4, align.K3.name: k3}}
+            return got
+
+        hits = both("match_timestamps", lambda c: c.match_timestamps(q_ts))
+        check(any(v == qvid for v, _ in hits), f"{tag}: {qvid} not in {hits}")
+        both("search_fingerprints", lambda c: c.search_fingerprints(fps[:128]),
+             k4=shards)
+        counts = both("nearest_video_counts", lambda c: c.nearest_video_counts(q),
+                      k4=shards)
+        owners = [int(single._fp_vid[e - 1]) for e in edges]
+        check(all(counts.get(v, 0) >= 1 for v in owners),
+              f"{tag}: planted edge copies not credited to {owners}: {counts}")
+        raw = both("query_nearest_raw", lambda c: [
+            t.cpu().tolist() for t in c._query_nearest(c._padded_queries(q),
+                                                        c._fp_dev)], k4=shards)
+        check(raw[1][120:120 + len(edges)] == [e - 1 for e in edges],
+              f"{tag}: edge ties resolved to {raw[1][120:]}, not {edges}")
+        both("nearest_video_counts_40000", lambda c: c.nearest_video_counts(long_q),
+             k4=3 * shards)
+        buckets = sum(bu is not None and bu.count > 0 for bu in single._al_buckets)
+        found = both("locate_fragments_8", lambda c: c.locate_fragments(frags, top_k=3),
+                     k3=buckets * data * shards)
+        check(all(r and r[0][0] == v and r[0][1] == 100 * v
+                  for v, r in zip(range(1, 9), found)), f"{tag}: fragments {found}")
+        out.update(edges=edges, edge_owners=owners, buckets=buckets, query_video=qvid)
+        return out
+    finally:
+        store.close()
+
+
+def _mesh_scans(mesh, dev) -> dict:
+    """``sharded_nearest`` and ``sharded_frame_min`` at M=128 against
+    N=2^24 rows (corpus shards of N / corpus rows, ties planted across every
+    shard edge) against single-card K4 on the same rows; device time and
+    per-call time of both. On one card the shards run one after another."""
+    import torch
+
+    from tvidz_tpu_torch.ops import hamming
+    from tvidz_tpu_torch.parallel import sharded_search as ss
+    from tvidz_tpu_torch.parallel.mesh import CORPUS_AXIS
+
+    shards = mesh.shape[CORPUS_AXIS]
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    corpus = torch.randint(-2 ** 31, 2 ** 31, (MESH_SCAN_N, 2), dtype=torch.int32,
+                           device=dev, generator=g)
+    q = torch.randint(-2 ** 31, 2 ** 31, (SCAN_M, 2), dtype=torch.int32,
+                      device=dev, generator=g)
+    rows = MESH_SCAN_N // shards
+    for j in range(1, shards):
+        corpus[j * rows - 1] = corpus[j * rows] = q[j]
+    sh = ss.place(corpus, mesh, CORPUS_AXIS)
+    out = {"n": MESH_SCAN_N, "m": SCAN_M, "shards": shards}
+    for mode, mesh_fn, single_fn in (
+            ("query_nearest", lambda: ss.sharded_nearest(q, sh, mesh),
+             lambda: hamming.corpus_query_nearest(q, corpus)),
+            ("frame_min", lambda: ss.sharded_frame_min(q, sh, mesh),
+             lambda: hamming.corpus_frame_min(q, corpus))):
+        got, want = mesh_fn(), single_fn()
+        got, want = (got if isinstance(got, tuple) else (got,),
+                     want if isinstance(want, tuple) else (want,))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"mesh scans: {mode} at 2^24 differs from single-card K4")
+        if mode == "query_nearest":
+            check(got[1][1:shards].tolist() == [j * rows - 1 for j in range(1, shards)],
+                  f"mesh scans: edge ties {got[1][1:shards].tolist()}")
+        mesh_ms, single_ms = interleaved_ms(mesh_fn, single_fn, 20)
+        out[mode] = {"mesh_ms": mesh_ms, "single_ms": single_ms,
+                     "mesh_device_ms": device_ms(mesh_fn, 20),
+                     "single_device_ms": device_ms(single_fn, 20)}
+    del corpus, sh
+    return out
+
+
+def _mesh_step(mesh, dev, ts_rows, ts_len, fp_rows, total: dict) -> dict:
+    """``multichip_analysis_step`` at B clips x NT tiles x T frames of
+    90x160 against the smoke corpus's first 8192 timestamp rows (one
+    holding clip 0's planted cut times) and 2^20 fingerprints, against the
+    per-clip single-card path (K1 stream, timestamp counts, K4 frame_min):
+    scores within SCORE_TOL, the rest bit-equal; K1 once a data row, K4
+    once per (clip, corpus shard); its per-call and device time."""
+    import numpy as np
+    import torch
+
+    from tvidz_tpu_torch import backend
+    from tvidz_tpu_torch.decode import synthetic
+    from tvidz_tpu_torch.ops import fused, hamming, timestamps
+    from tvidz_tpu_torch.parallel import step
+
+    data, shards = _mesh_shape(mesh)
+    b, nt, t = STEP_CLIPS, STEP_TILES, FRAMES
+    cuts = (40, 200, 300, 450, 600, 1000, 1300, 1700, 1900)
+    luma, pts = synthetic.synthetic_video(b * nt * t, HEIGHT, WIDTH,
+                                          cut_frames=cuts, seed=SEED + 32)
+    clips = luma.reshape(b, nt, t, HEIGHT, WIDTH)
+    pts = pts.reshape(b, nt * t)
+    ts_rows = ts_rows.copy()
+    clip0_cuts = [round(float(pts[0, f]), 6) for f in cuts if f < nt * t]
+    ts_rows[100] = np.nan
+    ts_rows[100, : len(clip0_cuts)] = clip0_cuts
+    ts_len = ts_len.copy()
+    ts_len[100] = len(clip0_cuts)
+    args = step.place_step_inputs(mesh, clips, pts, ts_rows, ts_len, fp_rows)
+    backend.reset_launch_counts()
+    out = step.multichip_analysis_step(*args, mesh=mesh)
+    launches = {k.name: k.launches for k in backend.KERNELS}
+    check(launches[fused.K1.name] == data and launches[hamming.K4.name] == b * shards,
+          f"step: launches {launches}, expected K1 {data}, K4 {b * shards}")
+    _add_launches(total, launches)
+    ts_dev = torch.from_numpy(ts_rows).to(dev)
+    len_dev = torch.from_numpy(ts_len).to(dev)
+    fp_dev = torch.from_numpy(np.ascontiguousarray(fp_rows).view(np.int32)).to(dev)
+    pts_dev = torch.from_numpy(np.round(pts, 6).astype(np.float32)).to(dev)
+    score_err = 0.0
+    for i in range(b):
+        sc, fp = fused.fingerprint_stream(torch.from_numpy(clips[i].reshape(-1, HEIGHT, WIDTH)).to(dev))
+        score_err = max(score_err, (out.scores[i] - sc).abs().max().item())
+        cut = step._extract_cut_ts(sc[None], pts_dev[i:i + 1], 0.3, 32)[0]
+        check(torch.equal(out.fingerprints[i], fp)
+              and torch.equal(out.ts_counts[i],
+                              timestamps.timestamp_match_counts(cut, ts_dev, len_dev))
+              and torch.equal(out.fp_min_dist[i], hamming.corpus_frame_min(fp, fp_dev)),
+              f"step: clip {i} differs from the single-card path")
+    check(score_err <= SCORE_TOL, f"step: scores {score_err} from the K1 stream")
+    check(out.ts_counts[0, 100].item() == len(clip0_cuts),
+          f"step: planted row matched {out.ts_counts[0, 100].item()} of {len(clip0_cuts)}")
+    run = lambda: step.multichip_analysis_step(*args, mesh=mesh)  # noqa: E731
+    return {"clips": [b, nt, t, HEIGHT, WIDTH], "ts_rows": int(ts_rows.shape[0]),
+            "fp_rows": int(fp_rows.shape[0]), "launches": launches,
+            "score_max_abs_err": score_err, "ms": cuda_ms(run, 5),
+            "device_ms": device_ms(run, 5)}
+
+
+def _mesh_whole_path(mesh, work: str, url: str, total: dict) -> dict:
+    """``Analyzer.analyze`` of an upload and then its renamed copy on a
+    copy of the smoke store, with a MeshCorpus and with the single-card
+    DeviceCorpus; then the service (fake S3 -> SQS -> poller -> analyzer,
+    shared dispatcher) on a fresh store with each. The mesh side's
+    verdicts must equal the single card's, and name the original."""
+    from tvidz_tpu_torch import backend
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.corpus.device_corpus import DeviceCorpus
+    from tvidz_tpu_torch.corpus.store import Store
+    from tvidz_tpu_torch.decode import write_synthetic_y4m
+    from tvidz_tpu_torch.parallel.mesh_corpus import MeshCorpus
+    from tvidz_tpu_torch.pipeline.analyzer import Analyzer
+    from tvidz_tpu_torch.pipeline.progress import AnalysisRegistry
+
+    cfg = Config()
+    src = os.path.join(work, "mesh_src")
+    os.makedirs(src, exist_ok=True)
+    write_synthetic_y4m(os.path.join(src, "mesh-src.y4m"), num_frames=300,
+                        height=180, width=320, cut_frames=(70, 160, 250),
+                        seed=SEED + 33)
+    shutil.copy(os.path.join(src, "mesh-src.y4m"), os.path.join(src, "mesh-copy.y4m"))
+
+    def fetcher(bucket, key, local):
+        shutil.copy(os.path.join(src, key), local)
+
+    def mesh_corpus():
+        return MeshCorpus(mesh, max_cuts=cfg.match.max_cuts, words=cfg.hash.words,
+                          hamming_threshold=cfg.match.hamming_threshold)
+
+    verdicts = {}
+    for tag, make in (("single", lambda: DeviceCorpus(device=mesh.home)),
+                      ("mesh", mesh_corpus)):
+        db = os.path.join(work, f"mesh_{tag}.db")
+        shutil.copy(url[len("sqlite:///"):], db)
+        store = Store(f"sqlite:///{db}")
+        try:
+            corpus = make()
+            corpus.load(store)
+            analyzer = Analyzer(store, corpus, AnalysisRegistry(), fetcher, cfg)
+            backend.reset_launch_counts()
+            verdicts[tag] = [(r.status, r.duplicates, r.scene_cuts) for r in
+                             (analyzer.analyze("videos", "mesh-src.y4m"),
+                              analyzer.analyze("videos", "mesh-copy.y4m"))]
+            if tag == "mesh":
+                _add_launches(total, {k.name: k.launches for k in backend.KERNELS})
+        finally:
+            store.close()
+    check(verdicts["mesh"] == verdicts["single"]
+          and verdicts["mesh"][0][:2] == ("done", [])
+          and verdicts["mesh"][1][:2] == ("done", ["mesh-src.y4m"]),
+          f"mesh analyze: {verdicts}")
+    service = {}
+    ups = {"mesh-svc.y4m": os.path.join(src, "mesh-src.y4m")}
+    for tag, corpus in (("single", None), ("mesh", mesh_corpus())):
+        out, k1, passes = _service_uploads(work, f"mesh_svc_{tag}", cfg, ups,
+                                           "mesh-svc.y4m", corpus=corpus)
+        if tag == "mesh":
+            _add_launches(total, {k.name: k.launches for k in backend.KERNELS})
+        service[tag] = {n: (v["status"], v.get("duplicates"), v.get("scene_cuts"))
+                        for n, v in out.items()}
+    check(service["mesh"] == service["single"]
+          and service["mesh"]["renamed-copy.y4m"][:2] == ("done", ["mesh-svc.y4m"]),
+          f"mesh service: {service}")
+    return {"analyze": verdicts["mesh"][1][:2], "service": service["mesh"]}
+
+
+def drive_mesh(dev, work: str, url: str, smi: str) -> dict:
+    """Phase ``mesh``: the corpus sharded over ``make_mesh(devices=[cuda:0]
+    * 8)`` = (data 2, corpus 4) — MeshCorpus against DeviceCorpus on the
+    smoke store, the 2^24 mesh scans against single-card K4, the
+    multi-card step against the per-clip single-card path, and the
+    analyzer and service verdicts on a MeshCorpus. With two or more cards
+    the same checks run again on ``make_mesh()`` over the real devices.
+    Launch counts are zeroed before and read after each mesh-side call
+    (the single-card side's launches are not counted)."""
+    import numpy as np
+    import torch
+
+    from tvidz_tpu_torch.parallel.mesh import make_mesh
+    from tvidz_tpu_torch.corpus.store import Store
+    from tvidz_tpu_torch.ops import align, fused, hamming
+
+    count = torch.cuda.device_count()
+    meshes = [("repeated", make_mesh(devices=[dev] * MESH_CELLS))]
+    if count >= 2:
+        meshes.append(("devices", make_mesh()))
+    store = Store(url)
+    try:
+        ts_rows, ts_len = np.full((STEP_TS_ROWS, 128), np.nan, np.float32), \
+            np.zeros(STEP_TS_ROWS, np.int32)
+        for i, (_, row) in enumerate(store.all_timestamps()[:STEP_TS_ROWS]):
+            ts_rows[i, : len(row)] = row[:128]
+            ts_len[i] = min(len(row), 128)
+        fp_rows = np.concatenate([f for _, f in store.all_fingerprints()])[:STEP_FP_ROWS]
+    finally:
+        store.close()
+    total, fields = {}, {}
+    for tag, mesh in meshes:
+        t0 = time.perf_counter()
+        fields[tag] = {
+            "mesh": _mesh_shape(mesh),
+            "devices": [str(d) for d in mesh.distinct_devices],
+            "corpus": _mesh_corpus_checks(mesh, url, tag, total),
+            "scans_2_24": _mesh_scans(mesh, dev),
+            "step": _mesh_step(mesh, dev, ts_rows, ts_len, fp_rows, total),
+            "whole_path": _mesh_whole_path(mesh, work, url, total),
+        }
+        fields[tag]["seconds"] = time.perf_counter() - t0
+    launches = {k.name: total.get(k.name, 0) for k in (fused.K1, hamming.K2,
+                                                       align.K3, hamming.K4)}
+    check(all(launches[k.name] > 0 for k in (fused.K1, align.K3, hamming.K4)),
+          f"mesh: kernels of the path never launched: {launches}")
+    phase("mesh", card=smi, device_count=count,
+          real_device_mesh=("ran" if count >= 2 else
+                            f"not run: {count} CUDA device on this machine"),
+          note="the repeated-device mesh runs its shards one after another "
+               "on one card: these times are not multi-GPU scaling",
+          launches=launches, **fields)
     return launches
 
 
@@ -2242,6 +2573,7 @@ def main(argv=None) -> int:
         path_launches["forward_batch"] = drive_forward_batch(dev, smi)
         path_launches["multistream"] = drive_multistream(work, smi)
         path_launches["bench_legs"] = drive_bench_legs(smi)
+        path_launches["mesh"] = drive_mesh(dev, work, url, smi)
 
         stream_bound = k1_bound(K1_VALUE_FRAMES)
         times["k1_stream"].update(

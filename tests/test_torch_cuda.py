@@ -607,3 +607,152 @@ def test_fingerprint_streams_on_the_card(dev, tmp_path):
         cuts, fps = model.analyze_path(r.path)
         assert r.error is None and r.scene_cuts == cuts
         assert np.array_equal(r.fingerprints, fps)
+
+
+# -- the mesh: four cells of cuda:0, or of four cards -----------------------------
+
+# Each mesh case runs on four cells of the card ("one_card") and on four
+# cards ("cards", skipped where fewer are visible).
+MESH_CELLS = pytest.mark.parametrize("cards", [False, True],
+                                     ids=["one_card", "cards"])
+
+
+@pytest.fixture
+def mesh_of(dev, cards):
+    """(data, corpus) -> a mesh of four cells: cuda:0 four times, or
+    cuda:0..3 (the tensors' devices then differ from cell to cell)."""
+    from tvidz_tpu_torch.parallel.mesh import make_mesh
+
+    if cards and torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+
+    def make(data=1, corpus=4):
+        devices = ([torch.device("cuda", i) for i in range(4)] if cards
+                   else [dev] * 4)
+        return make_mesh(4, data, corpus, devices=devices)
+    return make
+
+
+@MESH_CELLS
+def test_mesh_scans_equal_single_card_k4(dev, mesh_of):
+    """``sharded_frame_min`` / ``sharded_nearest`` over four shards: one K4
+    launch a shard, results equal one launch over the whole corpus, with
+    exact copies and a distance-2 tie on both sides of every shard edge."""
+    from tvidz_tpu_torch.parallel import sharded_search as ss
+
+    mesh, n, m = mesh_of(), 4 * 65_536, 128
+    rng = np.random.default_rng(81)
+    q = rng.integers(0, 2**32, size=(m, 2), dtype=np.uint32)
+    c = rng.integers(0, 2**32, size=(n, 2), dtype=np.uint32)
+    for j, edge in enumerate((65_536, 131_072, 196_608)):
+        c[edge - 1] = c[edge] = q[j]
+        c[edge - 2] = c[edge + 1] = q[10 + j] ^ np.uint32(3)
+    qt = torch.from_numpy(q.view(np.int32)).to(dev)
+    ct = torch.from_numpy(c.view(np.int32)).to(dev)
+    before = hamming.K4.launches
+    fmin = ss.sharded_frame_min(qt, ct, mesh)
+    q_min, q_arg = ss.sharded_nearest(qt, ct, mesh)
+    assert hamming.K4.launches == before + 8
+    assert torch.equal(fmin, hamming.corpus_frame_min(qt, ct))
+    want_min, want_arg = hamming.corpus_query_nearest(qt, ct)
+    assert torch.equal(q_min, want_min) and torch.equal(q_arg, want_arg)
+    assert q_arg[:3].tolist() == [65_535, 131_071, 196_607]
+    assert q_arg[10:13].tolist() == [65_534, 131_070, 196_606]
+
+
+@MESH_CELLS
+def test_mesh_fragment_batch_equals_single_card_k3(dev, mesh_of):
+    """The 2-D batch on a (data 2, corpus 2) mesh: one K3 launch a tile,
+    equal to one launch over the whole batch, a query of length 0 (a
+    padding row) included."""
+    from tvidz_tpu_torch.parallel import sharded_search as ss
+
+    mesh = mesh_of(2, 2)
+    rng = np.random.default_rng(82)
+    v, tc, tq = 8, 256, 128
+    corpus = rng.integers(1, 2**32 - 1, size=(v, tc, 2), dtype=np.uint32)
+    lens = rng.integers(140, tc + 1, size=v).astype(np.int32)
+    qs = np.full((4, tq, 2), 0xFFFFFFFF, np.uint32)
+    qlens = np.asarray([100, 0, 64, 17], np.int32)
+    for i, ln in enumerate(qlens):
+        qs[i, :ln] = corpus[(3 * i) % v, 20:20 + ln]
+    args = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+            for a in (qs, qlens, corpus, lens)]
+    before = align.K3.launches
+    offs, scores = ss.sharded_fragment_search_batch(*args, mesh, hamming_threshold=10)
+    assert align.K3.launches == before + 4
+    want = align.fragment_search_batch(*args, hamming_threshold=10)
+    assert torch.equal(offs, want[0]) and torch.equal(scores, want[1])
+    assert scores[1].max().item() == 0 and scores[0, 0].item() == 100
+
+
+@MESH_CELLS
+def test_mesh_corpus_equals_device_corpus_on_the_card(dev, mesh_of):
+    """A MeshCorpus on four cells answers every query as the single-card
+    DeviceCorpus does: K4 once a shard for each verdict scan,
+    K3 once a tile and bucket for the 2-D fragment batch."""
+    from tvidz_tpu_torch.corpus.device_corpus import DeviceCorpus
+    from tvidz_tpu_torch.parallel.mesh_corpus import MeshCorpus
+
+    rng = np.random.default_rng(83)
+    kw = dict(ts_initial_capacity=64, fp_initial_capacity=8192, hamming_threshold=10)
+    corpora = (MeshCorpus(mesh_of(), **kw), MeshCorpus(mesh_of(2, 2), **kw),
+               DeviceCorpus(device=dev, **kw))
+    seqs = {v: rng.integers(0, 2**32, size=(int(n), 2), dtype=np.uint32)
+            for v, n in zip(range(1, 41), rng.integers(50, 600, size=40))}
+    for v, s in seqs.items():
+        for c in corpora:
+            c.upsert_timestamps(v, [round(0.04 * (v + k), 6) for k in range(4)])
+            c.append_fingerprints(v, s)
+    q = np.concatenate([seqs[7][:20], seqs[30][5:25]])
+    frags = [seqs[3][10:60], seqs[22][100:300], np.zeros((0, 2), np.uint32)]
+    before = (hamming.K4.launches, align.K3.launches)
+    for call in (lambda c: c.match_timestamps([0.28, 0.32, 0.36]),
+                 lambda c: c.search_fingerprints(q),
+                 lambda c: c.nearest_video_counts(q),
+                 lambda c: c.locate_fragments(frags, top_k=3)):
+        answers = [call(c) for c in corpora]
+        assert answers[0] == answers[1] == answers[2], answers
+    k4, k3 = hamming.K4.launches - before[0], align.K3.launches - before[1]
+    buckets = sum(bu is not None and bu.count > 0 for bu in corpora[2]._al_buckets)
+    # K4: 4 + 4 (mesh 1) + 2 + 2 (mesh 2) + 2 (single card).
+    assert k4 == 14
+    # K3: one tile per shard (mesh 1), per data x corpus tile (mesh 2), one.
+    assert k3 == buckets * (4 + 4 + 1)
+
+
+@MESH_CELLS
+def test_step_equals_per_clip_single_card_path(dev, mesh_of):
+    """``multichip_analysis_step`` on a (data 2, corpus 2) mesh: one K1
+    launch a data row (on its own card with four), K4 once per (clip, shard); equal to each
+    clip's K1 stream, its timestamp counts and its K4 frame_min."""
+    from tvidz_tpu_torch.ops import timestamps
+    from tvidz_tpu_torch.parallel import step
+
+    mesh = mesh_of(2, 2)
+    rng = np.random.default_rng(84)
+    b, nt, t = 4, 2, 128
+    luma, _ = synthetic.synthetic_video(b * nt * t, 90, 160,
+                                        cut_frames=(40, 300, 700, 900), seed=9)
+    clips = luma.reshape(b, nt, t, 90, 160)
+    pts = np.tile(np.arange(nt * t) / 25.0, (b, 1))
+    corpus_ts = np.full((64, 16), np.nan, np.float32)
+    corpus_ts[33, :2] = [round(40 / 25.0, 6), 1.0]
+    corpus_len = np.full(64, 2, np.int32)
+    corpus_fp = rng.integers(0, 2**32, size=(4096, 2), dtype=np.uint32)
+    args = step.place_step_inputs(mesh, clips, pts, corpus_ts, corpus_len, corpus_fp)
+    before = (fused.K1.launches, hamming.K4.launches)
+    out = step.multichip_analysis_step(*args, mesh=mesh, max_cuts=8)
+    assert fused.K1.launches - before[0] == 2
+    assert hamming.K4.launches - before[1] == b * 2
+    ct = torch.from_numpy(corpus_fp.view(np.int32)).to(dev)
+    for i in range(b):
+        sc, fp = fused.fingerprint_stream(torch.from_numpy(luma[i * nt * t:(i + 1) * nt * t]).to(dev))
+        assert (out.scores[i] - sc).abs().max().item() <= 1e-6
+        assert torch.equal(out.fingerprints[i], fp)
+        cut = step._extract_cut_ts(sc[None], torch.from_numpy(
+            np.round(pts[i], 6).astype(np.float32)).to(dev)[None], 0.3, 8)[0]
+        assert torch.equal(out.ts_counts[i], timestamps.timestamp_match_counts(
+            cut, torch.from_numpy(corpus_ts).to(dev), torch.from_numpy(corpus_len).to(dev)))
+        assert torch.equal(out.fp_min_dist[i], hamming.corpus_frame_min(fp, ct))
+    assert out.ts_counts[0, 33].item() == 1

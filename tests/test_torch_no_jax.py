@@ -171,7 +171,9 @@ def test_bench_ingest_legs_run_with_jax_refused(tmp_path):
                                     "tvidz_tpu_torch.ops.resize",
                                     "tvidz_tpu_torch.ops.dct",
                                     "tvidz_tpu_torch.pipeline.multistream",
-                                    "tvidz_tpu_torch.bench"])
+                                    "tvidz_tpu_torch.bench",
+                                    "tvidz_tpu_torch.parallel.mesh_corpus",
+                                    "tvidz_tpu_torch.parallel.step"])
 def test_hash_modules_import_without_jax(tmp_path, module):
     out, refused = _run_cli(tmp_path, module=module)
     assert json.loads(out.strip().splitlines()[-1]) == {
@@ -185,25 +187,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_service_entrypoint_answers_status_with_jax_refused(tmp_path):
-    """Boot the port's service (fake AWS, no poller, CPU) with jax refused
-    and answer /status — the route whose reference registry lookup imports
-    the JAX analyzer."""
+def _serve_with_jax_refused(tmp_path, *argv, log_level="WARNING"):
+    """Boot the port's service (fake AWS, no poller, CPU, ``argv``) with jax
+    refused; once /healthz reads ok, return (GET of a path -> JSON, the
+    process). The caller stops it with ``_stop``."""
     port = _free_port()
-    refused = tmp_path / "refused.log"
     env = dict(os.environ, TVIDZ_TMP_DIR=str(tmp_path), TMPDIR=str(tmp_path),
                TVIDZ_FAKE_S3_ROOT=str(tmp_path / "s3"),
-               TVIDZ_LOG_LEVEL="WARNING")
+               TVIDZ_LOG_LEVEL=log_level)
     proc = subprocess.Popen(
         [sys.executable, "-c", _NO_JAX_RUNNER, str(ROOT),
-         "tvidz_tpu_torch.service.entrypoint", str(refused), "--fake-aws",
-         "--no-poller", "--device", "cpu", "--host", "127.0.0.1",
-         "--port", str(port), "--db", f"sqlite:///{tmp_path / 's.db'}"],
+         "tvidz_tpu_torch.service.entrypoint", str(tmp_path / "refused.log"),
+         "--fake-aws", "--no-poller", "--device", "cpu", "--host", "127.0.0.1",
+         "--port", str(port), "--db", f"sqlite:///{tmp_path / 's.db'}", *argv],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=tmp_path)
-    base = f"http://127.0.0.1:{port}"
 
     def get(path):
-        with urllib.request.urlopen(base + path, timeout=10) as r:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=10) as r:
             return json.loads(r.read())
 
     try:
@@ -218,16 +219,58 @@ def test_service_entrypoint_answers_status_with_jax_refused(tmp_path):
                 pass
             time.sleep(0.2)
         assert health and health["status"] == "ok", proc.stderr.read1()[-3000:]
-        assert get("/status/1723456789-ghost.mp4") == {"status": "pending"}
-        assert get("/metrics")["block_dispatcher"]["passes"] == 0
-    finally:
-        proc.terminate()
-        proc.wait(timeout=30)
-        proc.stdout.close()
-        proc.stderr.close()
+    except BaseException:
+        _stop(tmp_path, proc)
+        raise
+    return get, proc
+
+
+def _stop(tmp_path, proc) -> str:
+    """Stop a ``_serve_with_jax_refused`` process, check that it imported
+    neither jax nor the JAX package, and return its stdout."""
+    proc.terminate()
+    proc.wait(timeout=30)
+    out = proc.stdout.read().decode()
+    proc.stdout.close()
+    proc.stderr.close()
+    refused = tmp_path / "refused.log"
     assert not refused.exists(), refused.read_text()
     modules = json.loads((tmp_path / "refused.log.modules").read_text())
     assert modules == {"code": None, "jax": [], "tvidz_tpu": []}
+    return out
+
+
+def test_service_entrypoint_answers_status_with_jax_refused(tmp_path):
+    """Boot the port's service (fake AWS, no poller, CPU) with jax refused
+    and answer /status — the route whose reference registry lookup imports
+    the JAX analyzer."""
+    get, proc = _serve_with_jax_refused(tmp_path)
+    try:
+        assert get("/status/1723456789-ghost.mp4") == {"status": "pending"}
+        assert get("/metrics")["block_dispatcher"]["passes"] == 0
+    finally:
+        _stop(tmp_path, proc)
+
+
+def test_service_entrypoint_mesh_on_one_device(tmp_path):
+    """``--mesh`` with one device of the chosen type (here the CPU) logs the
+    reference's line and serves on the single-card corpus."""
+    get, proc = _serve_with_jax_refused(tmp_path, "--mesh", log_level="INFO")
+    try:
+        assert get("/healthz")["status"] == "ok"
+        assert get("/metrics")["corpus_footprint"]["fp_capacity_rows"] > 0
+    finally:
+        out = _stop(tmp_path, proc)
+    assert ("[entrypoint] --mesh requested but only 1 device; falling back "
+            "to single-chip corpus") in out
+
+
+def test_service_entrypoint_refuses_a_cluster(tmp_path, monkeypatch):
+    from tvidz_tpu_torch.service import entrypoint
+
+    monkeypatch.setenv("TVIDZ_COORDINATOR", "localhost:1234")
+    with pytest.raises(SystemExit, match="TVIDZ_COORDINATOR"):
+        entrypoint.main(["--device", "cpu", "--mesh"])
 
 
 def test_port_sources_never_import_jax():

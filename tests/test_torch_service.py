@@ -96,8 +96,9 @@ def _redirect_fixed_paths(monkeypatch, tmp_path):
     return _S3
 
 
-@pytest.fixture
-def app(tmp_path, monkeypatch):
+def make_app(tmp_path, monkeypatch, corpus):
+    """The suite's app over ``corpus`` (the ``app`` fixture's; a MeshCorpus
+    in tests/test_torch_mesh_corpus.py)."""
     s3_class = _redirect_fixed_paths(monkeypatch, tmp_path)
     monkeypatch.setattr(ref, "create_app",
                         functools.partial(create_app, device="cpu"))
@@ -111,14 +112,20 @@ def app(tmp_path, monkeypatch):
     inspector = create_app(
         config=cfg,
         store=Store("sqlite:///:memory:"),
-        corpus=CPU_CORPUS(ts_initial_capacity=8, fp_initial_capacity=1024,
-                          fp_block_n=256),
+        corpus=corpus,
         s3=s3, sqs=sqs,
         build_env={"BUILD_DATE": "2026-08-16", "BUILD_TIME": "00:00",
                    "GIT_COMMIT": "deadbeef"},
         device="cpu",
     )
     assert inspector.block_dispatcher is not None
+    return inspector
+
+
+@pytest.fixture
+def app(tmp_path, monkeypatch):
+    inspector = make_app(tmp_path, monkeypatch, CPU_CORPUS(
+        ts_initial_capacity=8, fp_initial_capacity=1024, fp_block_n=256))
     yield inspector
     inspector.stop()
 

@@ -77,8 +77,8 @@ def _nvcc() -> str:
 
 class Kernel:
     """One hand-written CUDA source, its lazily built library, and the count
-    of launches its Python wrapper made (raised by the wrapper where it
-    launches the kernel, and nowhere else)."""
+    of launches its Python wrappers made (raised by ``launch``, and nowhere
+    else)."""
 
     def __init__(self, name: str, replaces: str,
                  entry_points: Dict[str, Sequence[type]]):
@@ -138,6 +138,15 @@ class Kernel:
         if rc != 0:
             msg = lib.tvz_error_string(rc).decode(errors="replace")
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc} ({msg})")
+
+    def launch(self, fn: str, device: torch.device, *args) -> None:
+        """Launch the kernel through entry point ``fn`` on ``device``'s
+        current stream (passed as the last argument), and count it. The
+        entry points launch on the current CUDA device and keep per-device
+        state, so ``device`` is made current for the call."""
+        with torch.cuda.device(device):
+            self.call(fn, *args, stream_ptr(device))
+        self.launches += 1
 
 
 KERNELS: List[Kernel] = []

@@ -78,7 +78,13 @@ class _AlignBucket:
 
 
 class DeviceCorpus:
-    """Single-GPU device corpus (the sharded variants are ROADMAP slice 3)."""
+    """Single-GPU device corpus. ``parallel.mesh_corpus.MeshCorpus`` shards
+    it over a device mesh by overriding its placement (``_sync_*``) and its
+    query hooks (``_ts_counts``, ``_frame_min``, ``_query_nearest``,
+    ``_place_fragment_query``, ``_fragment_query``)."""
+
+    # Video rows of a new alignment bucket (MeshCorpus: a shard multiple).
+    _al_initial_vcap = 64
 
     def __init__(
         self,
@@ -302,7 +308,8 @@ class DeviceCorpus:
         while len(self._al_buckets) <= b:
             self._al_buckets.append(None)
         if self._al_buckets[b] is None:
-            self._al_buckets[b] = _AlignBucket(_AL_T0 << b, 64, self.words)
+            self._al_buckets[b] = _AlignBucket(_AL_T0 << b, self._al_initial_vcap,
+                                               self.words)
         return self._al_buckets[b]
 
     def _append_al_locked(self, video_id: int, fp: np.ndarray) -> None:
@@ -381,34 +388,35 @@ class DeviceCorpus:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _fp_rows(self, rows) -> torch.Tensor:
-        """Host uint32 fingerprint rows as device int32 bit-views."""
-        return self._to_device(np.ascontiguousarray(self._fp[rows]).view(np.int32))
+    def _put(self, host: np.ndarray, index: str, device=None) -> torch.Tensor:
+        """A host array of corpus content on ``device`` (default: the
+        corpus's): the one placement that counts ``sync_bytes[index]``, the
+        host-to-device bytes of each index."""
+        self.sync_bytes[index] += host.nbytes
+        return torch.from_numpy(np.ascontiguousarray(host)).to(device or self.device)
 
     def _sync_ts(self) -> None:
         if self._ts_full_resync or self._ts_dev is None:
-            self._ts_dev = self._to_device(self._ts)
-            self._ts_len_dev = self._to_device(self._ts_len)
+            self._ts_dev = self._put(self._ts, "ts")
+            self._ts_len_dev = self._put(self._ts_len, "ts")
             self._ts_full_resync = False
-            self.sync_bytes["ts"] += self._ts.nbytes + self._ts_len.nbytes
         elif self._ts_dirty_rows:
             rows = sorted(set(self._ts_dirty_rows))
             idx = self._to_device(np.asarray(rows, np.int64))
-            self._ts_dev[idx] = self._to_device(self._ts[rows])
-            self._ts_len_dev[idx] = self._to_device(self._ts_len[rows])
-            self.sync_bytes["ts"] += len(rows) * (self._ts.shape[1] * 4 + 4)
+            self._ts_dev[idx] = self._put(self._ts[rows], "ts")
+            self._ts_len_dev[idx] = self._put(self._ts_len[rows], "ts")
         self._ts_dirty_rows.clear()
 
     def _sync_fp(self) -> None:
+        """The (cap, W) int32 bit-view of the host's uint32 rows."""
+        fp = self._fp.view(np.int32)
         if self._fp_full_resync or self._fp_dev is None:
-            self._fp_dev = self._fp_rows(slice(None))
+            self._fp_dev = self._put(fp, "fp")
             self._fp_full_resync = False
-            self.sync_bytes["fp"] += self._fp.nbytes
         else:
             if self._fp_synced_count < self._fp_count:
                 s, e = self._fp_synced_count, self._fp_count
-                self._fp_dev[s:e] = self._fp_rows(slice(s, e))
-                self.sync_bytes["fp"] += (e - s) * self.words * 4
+                self._fp_dev[s:e] = self._put(fp[s:e], "fp")
             # In-place tombstone overwrites below the synced watermark.
             dirty = sorted(
                 c for c in set(self._fp_dirty_cols)
@@ -416,8 +424,7 @@ class DeviceCorpus:
             )
             if dirty:
                 idx = self._to_device(np.asarray(dirty, np.int64))
-                self._fp_dev[idx] = self._fp_rows(dirty)
-                self.sync_bytes["fp"] += len(dirty) * self.words * 4
+                self._fp_dev[idx] = self._put(fp[dirty], "fp")
         self._fp_synced_count = self._fp_count
         self._fp_dirty_cols.clear()
 
@@ -425,28 +432,47 @@ class DeviceCorpus:
         """Per-bucket device mirror: in full after growth (or the first
         query), else the dirty rows only."""
         if bu.full_resync or bu.dev is None:
-            bu.dev = self._to_device(bu.buf.view(np.int32))
-            bu.len_dev = self._to_device(bu.len)
-            self.sync_bytes["al"] += bu.buf.nbytes + bu.len.nbytes
+            bu.dev = self._put(bu.buf.view(np.int32), "al")
+            bu.len_dev = self._put(bu.len, "al")
         elif bu.dirty:
             rows = sorted(bu.dirty)
             idx = self._to_device(np.asarray(rows, np.int64))
-            bu.dev[idx] = self._to_device(bu.buf[rows].view(np.int32))
-            bu.len_dev[idx] = self._to_device(bu.len[rows])
-            self.sync_bytes["al"] += len(rows) * (
-                bu.tcap * self.words * 4 + 4)
+            bu.dev[idx] = self._put(bu.buf[rows].view(np.int32), "al")
+            bu.len_dev[idx] = self._put(bu.len[rows], "al")
         bu.full_resync = False
         bu.dirty.clear()
 
-    def _padded_queries(self, query: np.ndarray) -> torch.Tensor:
-        """Queries rounded up to a multiple of 8 rows with copies of row 0
-        (a duplicate never changes a minimum; kept from the reference, whose
-        kernel tiling needed it)."""
+    @staticmethod
+    def _padded_queries(query: np.ndarray) -> np.ndarray:
+        """(M, W) queries rounded up to a multiple of 8 rows with copies of
+        row 0 (a duplicate never changes a minimum; kept from the reference,
+        whose kernel tiling needed it), as a host int32 bit-view."""
         q = np.asarray(query, np.uint32)
         m_pad = -q.shape[0] % 8
         if m_pad:
             q = np.concatenate([q, np.repeat(q[:1], m_pad, axis=0)])
-        return self._to_device(np.ascontiguousarray(q).view(np.int32))
+        return np.ascontiguousarray(q).view(np.int32)
+
+    # -- query hooks (MeshCorpus overrides them) -----------------------------------
+    # Each takes its queries as a host array and the synced device mirrors,
+    # and returns its result as tensors on ``self.device``.
+
+    def _ts_counts(self, q: np.ndarray, ts_dev, len_dev,
+                   tolerance: float) -> torch.Tensor:
+        """(cap,) int32 match counts of the (max_cuts,) query."""
+        return timestamp_match_counts(self._to_device(q), ts_dev, len_dev,
+                                      tolerance=tolerance)
+
+    def _frame_min(self, q: np.ndarray, fp_dev) -> torch.Tensor:
+        """(cap,) int32: per corpus row, the min distance over the queries
+        (K4 ``frame_min``)."""
+        return corpus_frame_min(self._to_device(q), fp_dev)
+
+    def _query_nearest(self, q: np.ndarray, fp_dev
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per query row (min distance, FIRST corpus row attaining it) (K4
+        ``query_nearest``)."""
+        return corpus_query_nearest(self._to_device(q), fp_dev)
 
     # -- queries ------------------------------------------------------------------
 
@@ -471,9 +497,8 @@ class DeviceCorpus:
             # Launched under the lock (here and in the other queries): a
             # later dirty-row sync writes the device mirror in place, and
             # must come after this read, on the same stream.
-            counts = timestamp_match_counts(
-                self._to_device(q), self._ts_dev, self._ts_len_dev,
-                tolerance=tolerance)
+            counts = self._ts_counts(q, self._ts_dev, self._ts_len_dev,
+                                     tolerance)
         counts = counts[:count_n].cpu().numpy()
         keep = counts >= min_match
         if exclude_video_id is not None:
@@ -495,8 +520,8 @@ class DeviceCorpus:
             self._sync_fp()
             fp_vid = self._fp_vid[: self._fp_count].copy()
             count_n = self._fp_count
-            frame_min = corpus_frame_min(self._padded_queries(query),
-                                         self._fp_dev)
+            frame_min = self._frame_min(self._padded_queries(query),
+                                        self._fp_dev)
         matched = frame_min[:count_n].cpu().numpy() <= self.hamming_threshold
         vids_matched = fp_vid[matched]
         if vids_matched.size == 0:
@@ -524,8 +549,8 @@ class DeviceCorpus:
             self._sync_fp()
             fp_vid = self._fp_vid[: self._fp_count].copy()
             count_n = self._fp_count
-            q_min, q_arg = corpus_query_nearest(self._padded_queries(query),
-                                                self._fp_dev)
+            q_min, q_arg = self._query_nearest(self._padded_queries(query),
+                                               self._fp_dev)
         m = query.shape[0]
         q_min = q_min[:m].cpu().numpy()
         q_arg = q_arg[:m].cpu().numpy()

@@ -562,36 +562,42 @@ const void* instance_for(int W) {
                 : (W <= kMaxWords ? kernel_of<MODE, 0>() : kernel_of<MODE, -1>());
 }
 
-// The grid for an N-row corpus of W-word rows: as many CTAs as fit on the
-// card at once (the occupancy API, asked once per process, mode and W; one
-// slot for every chunked W), at most one per tile, and more where a range
-// would hold more rows than the key's row field (wide W on a large corpus:
-// the extra CTAs run in waves). Where W needs more than 48 KB of shared
-// memory the instance opts in to the most a block may have, so that a
-// narrower W asked later never lowers the limit under a wider one's
-// launches.
+// Devices whose grids are cached (a device past them asks every call).
+constexpr int kCachedDevices = 16;
+
+// The grid for an N-row corpus of W-word rows on the current device: as
+// many CTAs as fit on the card at once (the occupancy API, asked once per
+// device, mode and W; one slot for every chunked W), at most one per tile,
+// and more where a range would hold more rows than the key's row field
+// (wide W on a large corpus: the extra CTAs run in waves). Where W needs
+// more than 48 KB of shared memory the instance opts in to the most a
+// block may have, so that a narrower W asked later never lowers the limit
+// under a wider one's launches. The opt-in holds for one device only, so
+// each device makes its own.
 template <int MODE>
 cudaError_t grid_for(int N, int W, int* grid) {
-  static int ctas_by_w[kMaxWords + 1];   // once per process (a benign race)
+  static int ctas_by_w[kCachedDevices][kMaxWords + 1];   // a benign race
   const size_t smem = scan_smem(W);
   if (W < 1 || W > kMaxKeyWords || smem + kStaticSmem > (size_t)kMaxSmem)
     return cudaErrorInvalidValue;
-  const int slot = W <= kMaxWords ? W : 0;
-  if (ctas_by_w[slot] == 0) {
+  int dev = 0, uncached = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int& ctas_slot = dev < kCachedDevices ? ctas_by_w[dev][W <= kMaxWords ? W : 0]
+                                        : uncached;
+  if (ctas_slot == 0) {
     const void* fn = instance_for<MODE>(W);
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess && smem > 48 * 1024)
       e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem - kStaticSmem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
     if (e != cudaSuccess) return e;
-    ctas_by_w[slot] = sms * (per_sm > 0 ? per_sm : 1);
+    ctas_slot = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const int ctas = ctas_by_w[slot];
+  const int ctas = ctas_slot;
   const int tiles = (int)(((long long)N + kTileN - 1) / kTileN);
   // A running key holds a row of its CTA's range below key_form(W).low.
   const long long range_tiles = ((long long)key_form(W).low - 1) / kTileN;

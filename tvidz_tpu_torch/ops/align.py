@@ -180,10 +180,9 @@ def _fragment_search_cuda(q_fps, q_lens, corpus, lens, thr):
     offs = torch.empty((qn, v), dtype=torch.int32, device=dev)
     scores = torch.empty((qn, v), dtype=torch.int32, device=dev)
     p = backend.ptr
-    K3.call("tvz_fragment_search", p(q_fps), p(q_lens), qn, tq_pad,
-            p(corpus), p(lens), v, tc, w, int(thr), p(keys), p(offs), p(scores),
-            backend.stream_ptr(dev))
-    K3.launches += 1
+    K3.launch("tvz_fragment_search", dev, p(q_fps), p(q_lens), qn, tq_pad,
+              p(corpus), p(lens), v, tc, w, int(thr), p(keys), p(offs),
+              p(scores))
     return offs, scores
 
 

@@ -212,9 +212,7 @@ def _launch(lumas: Sequence[torch.Tensor], carries: Sequence[FingerprintCarry],
         base + 4 * o_fr, base + 4 * o_m, base + 4 * o_hp, *xp, *fp,
         *[sc.prev_mafd.data_ptr() for sc in scs],
         *[sc.has_prev.data_ptr() for sc in scs], *vts)
-    K1.call("tvz_fingerprint_segments", form, s, t, h, w, table,
-            backend.stream_ptr(dev))
-    K1.launches += 1
+    K1.launch("tvz_fingerprint_segments", dev, form, s, t, h, w, table)
     i32, b8 = buf.view(torch.int32), buf.view(torch.bool)
     if lone:                             # one segment, no batch dimension
         return (buf.as_strided((t,), (1,), o_sc),
@@ -389,9 +387,8 @@ def median_pack_cuda(low: torch.Tensor) -> torch.Tensor:
     n = low.shape[0]
     backend.require(low, "low", torch.float32, (n, 64), low.device)
     out = torch.empty((n, 2), dtype=torch.int32, device=low.device)
-    K1.call("tvz_median_pack", backend.ptr(low), n, backend.ptr(out),
-            backend.stream_ptr(low.device))
-    K1.launches += 1
+    K1.launch("tvz_median_pack", low.device, backend.ptr(low), n,
+              backend.ptr(out))
     return out
 
 

@@ -222,10 +222,8 @@ def _corpus_min_distance_cuda(q, corpus, frame_min):
     q_min = torch.empty((m,), dtype=torch.int32, device=dev)
     q_arg = torch.empty((m,), dtype=torch.int32, device=dev)
     p = backend.ptr
-    K2.call("tvz_corpus_scan", p(q), m, p(corpus), n, q.shape[1],
-            None if fmin is None else p(fmin), p(keys), p(q_min), p(q_arg),
-            backend.stream_ptr(dev))
-    K2.launches += 1
+    K2.launch("tvz_corpus_scan", dev, p(q), m, p(corpus), n, q.shape[1],
+              None if fmin is None else p(fmin), p(keys), p(q_min), p(q_arg))
     return fmin, q_min, q_arg
 
 
@@ -249,9 +247,8 @@ def _corpus_frame_min_xor_cuda(q, corpus):
     dev, m, n = _check_kernel_inputs(q, corpus, "corpus-scan", K2_MAX_WORDS)
     fmin = torch.empty((n,), dtype=torch.int32, device=dev)
     p = backend.ptr
-    K2.call("tvz_corpus_frame_min", p(q), m, p(corpus), n, q.shape[1], p(fmin),
-            backend.stream_ptr(dev))
-    K2.launches += 1
+    K2.launch("tvz_corpus_frame_min", dev, p(q), m, p(corpus), n, q.shape[1],
+              p(fmin))
     return fmin, None, None
 
 
@@ -292,10 +289,9 @@ def _corpus_scan_tc_cuda(q, corpus, mode, rows):
     q_arg = empty((m,)) if want_query else None
     keys, ticket = _scan_workspace(dev) if want_query else (None, None)
     p = lambda t: None if t is None else backend.ptr(t)  # noqa: E731
-    K4.call("tvz_corpus_scan_tc", p(q), m, p(corpus), n, q.shape[1], p(rows),
-            MODES.index(mode), p(fmin), p(keys), p(ticket), p(q_min), p(q_arg),
-            backend.stream_ptr(dev))
-    K4.launches += 1
+    K4.launch("tvz_corpus_scan_tc", dev, p(q), m, p(corpus), n, q.shape[1],
+              p(rows), MODES.index(mode), p(fmin), p(keys), p(ticket), p(q_min),
+              p(q_arg))
     return fmin, q_min, q_arg
 
 

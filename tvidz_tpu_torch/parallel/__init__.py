@@ -1,0 +1,24 @@
+"""The corpus sharded over a device mesh (port of ``tvidz_tpu/parallel``)."""
+
+from tvidz_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
+from tvidz_tpu_torch.parallel.mesh_corpus import MeshCorpus
+from tvidz_tpu_torch.parallel.sharded_search import (
+    ShardedCorpus,
+    sharded_frame_min,
+    sharded_hamming_topk,
+    sharded_nearest,
+    sharded_timestamp_match,
+)
+from tvidz_tpu_torch.parallel.step import multichip_analysis_step
+
+__all__ = [
+    "make_mesh",
+    "mesh_shape_for",
+    "MeshCorpus",
+    "ShardedCorpus",
+    "sharded_frame_min",
+    "sharded_hamming_topk",
+    "sharded_nearest",
+    "sharded_timestamp_match",
+    "multichip_analysis_step",
+]

@@ -109,7 +109,7 @@ class _TransferPump:
             holder, payload = item
             try:
                 host = torch.from_numpy(np.ascontiguousarray(payload)).pin_memory()
-                with torch.cuda.stream(self.stream):
+                with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
                     block = host.to(self.device, non_blocking=True)
                     done = torch.cuda.Event()
                     done.record(self.stream)
@@ -328,7 +328,8 @@ def _dispatch(model: FingerprintModel, ready):
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        # On the outputs' device (not the current one): the copy's stream.
+        done.record(torch.cuda.current_stream(packed.device))
         return metas, host, done
     return metas, packed, None
 

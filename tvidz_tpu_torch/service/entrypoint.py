@@ -7,10 +7,12 @@ the main thread — build every kernel, run one ``forward`` and one dispatcher
 pass per batch bucket — then mark the app ready and start the SQS poller.
 
     python -m tvidz_tpu_torch.service.entrypoint --fake-aws \\
-        --db sqlite:///:memory: --port 5055 [--device cuda|cpu]
+        --db sqlite:///:memory: --port 5055 [--device cuda|cpu] [--mesh]
 
-One process on one GPU: ``--mesh`` and a multi-host cluster
-(``TVIDZ_COORDINATOR``) are ROADMAP slice 3 and raise here.
+``--mesh`` shards the corpus over every GPU of the host (one process,
+``parallel.make_mesh`` and ``MeshCorpus``) where there are two or more, and
+keeps the single-card corpus otherwise. A multi-host cluster
+(``TVIDZ_COORDINATOR``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -20,17 +22,22 @@ import os
 import tempfile
 import time
 
+import torch
+
 from tvidz_tpu_torch import backend
 from tvidz_tpu_torch.config import Config
 from tvidz_tpu_torch.corpus.store import Store
 from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+from tvidz_tpu_torch.ops.align import fragment_search
+from tvidz_tpu_torch.ops.hamming import corpus_frame_min, corpus_query_nearest
+from tvidz_tpu_torch.parallel.mesh import make_mesh
+from tvidz_tpu_torch.parallel.mesh_corpus import MeshCorpus
 from tvidz_tpu_torch.pipeline.dispatcher import SharedBlockDispatcher
 from tvidz_tpu_torch.service import fakes, wsgi
 from tvidz_tpu_torch.service.app import create_app
 from tvidz_tpu_torch.utils import log
 
-_SLICE_3 = ("multi-GPU and multi-host serving are not ported yet "
-            "(ROADMAP.md, slice 3)")
+_MULTI_HOST = "multi-host serving is not ported yet (ROADMAP.md, A7)"
 
 
 def build_clients(config: Config, fake: bool, fake_root: str = None):
@@ -99,11 +106,29 @@ def bootstrap(config: Config, s3, sqs, retries: int = 30,
         log("entrypoint", f"bucket notification apply failed: {e}")
 
 
-def warmup_device(config: Config, device) -> None:
+def _warm_corpus_kernels(device, words: int) -> None:
+    """One small launch of each corpus kernel a mesh shard runs (K4's two
+    verdict modes, K3) on ``device``: its context and per-device kernel
+    set-up happen at boot, not in the first query."""
+    q = torch.zeros((8, words), dtype=torch.int32, device=device)
+    rows = torch.zeros((256, words), dtype=torch.int32, device=device)
+    corpus_frame_min(q, rows)
+    corpus_query_nearest(q, rows)
+    fragment_search(torch.zeros((64, words), dtype=torch.int32, device=device), 1,
+                    rows.reshape(4, 64, words),
+                    torch.ones((4,), dtype=torch.int32, device=device))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def warmup_device(config: Config, device, mesh=None) -> None:
     """Build every kernel (CUDA), run one forward at the production block
-    shape, and one dispatcher pass at each batch bucket."""
+    shape, and one dispatcher pass at each batch bucket; with a ``mesh``,
+    warm the corpus kernels on each of its devices too."""
     if device.type == "cuda":
         backend.build_all()
+    for dev in mesh.distinct_devices if mesh is not None else ():
+        _warm_corpus_kernels(dev, config.hash.words)
     model = FingerprintModel(config, device=device)
     scores, _, _ = model.forward(model.example_payload(), model.init_carry())
     scores.cpu()
@@ -128,14 +153,12 @@ def main(argv=None) -> None:
                         help="in-process S3/SQS fakes (hermetic demo/test mode)")
     parser.add_argument("--no-poller", action="store_true")
     parser.add_argument("--mesh", action="store_true",
-                        help="shard the corpus over several GPUs (not ported yet)")
+                        help="shard the corpus over every GPU of the host")
     parser.add_argument("--device", default=None,
                         help="cuda (default, or $TVIDZ_TORCH_DEVICE) or cpu")
     args = parser.parse_args(argv)
-    if args.mesh:
-        raise SystemExit(f"--mesh: {_SLICE_3}")
     if os.environ.get("TVIDZ_COORDINATOR"):
-        raise SystemExit(f"TVIDZ_COORDINATOR is set: {_SLICE_3}")
+        raise SystemExit(f"TVIDZ_COORDINATOR is set: {_MULTI_HOST}")
     device = backend.resolve_device(args.device)
 
     config = Config()
@@ -156,8 +179,26 @@ def main(argv=None) -> None:
     if not args.fake_aws:
         bootstrap(config, s3, sqs)
 
-    app = create_app(config=config, store=Store(config.store.url), s3=s3,
-                     sqs=sqs, device=device)
+    corpus = mesh = None
+    if args.mesh:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+        if n < 2:
+            log("entrypoint", f"--mesh requested but only {n} device; "
+                              "falling back to single-chip corpus")
+        else:
+            mesh = make_mesh(n)
+            corpus = MeshCorpus(
+                mesh,
+                max_cuts=config.match.max_cuts,
+                words=config.hash.words,
+                hamming_threshold=config.match.hamming_threshold,
+            )
+            device = corpus.device
+            log("entrypoint", f"corpus sharded over {n} devices "
+                              f"(mesh {dict(mesh.shape)})")
+
+    app = create_app(config=config, store=Store(config.store.url),
+                     corpus=corpus, s3=s3, sqs=sqs, device=device)
     app.device_ready = False
     # Serve at once (orchestrators see the port up, /healthz says
     # "warming"), then warm the device from the main thread.
@@ -166,7 +207,7 @@ def main(argv=None) -> None:
     log("entrypoint",
         f"inspector serving on {config.service.host}:{config.service.port} "
         "(device warming)")
-    warmup_device(config, device)
+    warmup_device(config, device, mesh)
     app.device_ready = True
     if not args.no_poller:
         app.start_poller()
