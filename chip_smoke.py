@@ -33,6 +33,11 @@ fingerprints through K3 and K4), then:
   against DeviceCorpus on the smoke store, the mesh scans against
   single-card K4 at 2^24 rows, ``multichip_analysis_step`` against the
   per-clip single-card path, the analyzer's and the service's verdicts;
+- ``multihost``: the corpus sharded across two ``torch.distributed`` rank
+  processes on cuda:0 (gloo) — the port's dryrun at 2^24 fingerprint rows
+  against a single-card DeviceCorpus, and two served ranks on one shared
+  store warmed with 2^20 fingerprints (``--quick``), each rank reporting
+  its kernel launches;
 
 and time it. Launch counts are zeroed before and read after each of those
 paths.
@@ -2253,6 +2258,115 @@ def drive_mesh(dev, work: str, url: str, smi: str) -> dict:
     return launches
 
 
+MH_RANKS, MH_CELLS = 2, 2      # the multihost phase: ranks on cuda:0, cells each
+
+
+def _run_driver(argv, what: str, timeout: float) -> dict:
+    """Run one of the port's multi-host drivers (a module) to its end; its
+    last line is its JSON summary. Its ranks' output goes to a file beside
+    the summary, and the tail of it into the failure."""
+    import signal
+
+    env = dict(os.environ, TVIDZ_DIST_BACKEND="gloo")
+    # A session of its own: on a timeout the driver and the rank processes
+    # it started are killed together.
+    proc = subprocess.Popen([sys.executable, "-m", *argv], env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    lines = out.strip().splitlines()
+    try:
+        summary = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        summary = {"ok": False}
+    check(proc.returncode == 0 and summary.get("ok"),
+          f"{what}: exit {proc.returncode}, {str(summary)[:1500]}\n"
+          f"{out[-3000:]}\n{err[-3000:]}")
+    return summary
+
+
+def drive_multihost(work: str, smi: str) -> dict:
+    """Phase ``multihost``: the corpus sharded across two rank processes of
+    a ``torch.distributed`` group, both on cuda:0 over gloo (NCCL refuses two
+    ranks on one card).
+
+    1. ``parallel.dryrun --large``: each rank with ``[cuda:0] * 2`` cells
+       places its half of a 2^24-row fingerprint index, 2^16 timestamp rows
+       and a 4096-video alignment index, and runs ``match_timestamps``,
+       ``search_fingerprints`` (K4 ``frame_min`` per local shard),
+       ``nearest_fingerprints`` and ``fragment_search(_batch)`` (K3); every
+       rank's answers must be identical and equal to a single-card
+       DeviceCorpus of the same rows, ties planted across the rank boundary
+       and every shard edge included, and the evidence and the fragment
+       also to the same DeviceCorpus with K4 and K3 swapped for their plain
+       versions (the reference dryrun's appends, churn and compaction run
+       in the CPU tests and the ``cuda`` tests, not here).
+    2. ``service.integration_multihost --quick``: two entrypoint processes
+       on one shared sqlite store warmed from a fresh 2^20-fingerprint
+       ``prefill_store``: a verdict across ranks, /status from the other
+       rank, cross-rank fragment searches, online growth past the warm
+       capacity, op-log pruning and a remove.
+
+    Each rank zeroes its counts before its work (the dryrun at its
+    scenario, a service once ready) and reports them; K3 and K4 must have
+    launched on every dryrun rank, K3 on every served rank and K1 on each
+    rank that ingested."""
+    import torch
+
+    from tvidz_tpu_torch.ops import align, fused, hamming
+
+    # The ranks share the card with this process: hand back what its
+    # allocator caches from the earlier phases.
+    torch.cuda.empty_cache()
+    t_phase = t0 = time.perf_counter()
+    dry = _run_driver(
+        ["tvidz_tpu_torch.parallel.dryrun", "--processes", str(MH_RANKS),
+         "--device", "cuda", "--cells", str(MH_CELLS), "--large",
+         "--out", os.path.join(work, "mh_dryrun")], "multihost dryrun", 400)
+    dry_s = time.perf_counter() - t0
+    for r, counts in enumerate(dry["launches"]):
+        check(counts[align.K3.name] > 0 and counts[hamming.K4.name] > 0,
+              f"multihost dryrun: rank {r} launched {counts}")
+    t0 = time.perf_counter()
+    db = os.path.join(work, "mh_prefill.db")
+    n_fp = prefill_store(db)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = _run_driver(
+        ["tvidz_tpu_torch.service.integration_multihost", "--device", "cuda",
+         "--quick", "--store-from", db],
+        "multihost served", 400)
+    served_s = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    ingested = (0, 1)                    # A and G on rank 0, B on rank 1
+    for r, rank in enumerate(served["ranks"]):
+        counts = rank["kernel_launches"]
+        check(counts[align.K3.name] > 0
+              and (r not in ingested or counts[fused.K1.name] > 0),
+              f"multihost served: rank {r} launched {counts}")
+    per_rank = ([c for c in dry["launches"]]
+                + [rank["kernel_launches"] for rank in served["ranks"]])
+    launches = {k.name: sum(c[k.name] for c in per_rank)
+                for k in (fused.K1, hamming.K2, align.K3, hamming.K4)}
+    phase("multihost", card=smi, ranks=MH_RANKS, backend="gloo",
+          seconds=phase_s,
+          dryrun={"seconds": dry_s, "mesh": dry["mesh"], "edges": dry["edges"],
+                  "launches": dry["launches"], "rank_seconds": dry["rank_seconds"],
+                  "parent_seconds": dry["parent_seconds"],
+                  "timings": dry["timings"]},
+          served={"seconds": served_s, "prefill_seconds": prefill_s,
+                  "prefill_fingerprints": n_fp,
+                  "timings": served["timings"],
+                  "ranks": served["ranks"]},
+          launches=launches)
+    return launches
+
+
 def drive_bench(smi: str) -> dict:
     """The port's ``bench`` entry point at reduced passes (``--sizes smoke``:
     the leg shapes of the full run, fewer repetitions), through its CLI;
@@ -2574,6 +2688,7 @@ def main(argv=None) -> int:
         path_launches["multistream"] = drive_multistream(work, smi)
         path_launches["bench_legs"] = drive_bench_legs(smi)
         path_launches["mesh"] = drive_mesh(dev, work, url, smi)
+        path_launches["multihost"] = drive_multihost(work, smi)
 
         stream_bound = k1_bound(K1_VALUE_FRAMES)
         times["k1_stream"].update(

@@ -756,3 +756,59 @@ def test_step_equals_per_clip_single_card_path(dev, mesh_of):
             cut, torch.from_numpy(corpus_ts).to(dev), torch.from_numpy(corpus_len).to(dev)))
         assert torch.equal(out.fp_min_dist[i], hamming.corpus_frame_min(fp, ct))
     assert out.ts_counts[0, 33].item() == 1
+
+
+# -- multi-host: ranks of a torch.distributed group ----------------------------------
+# Two ranks on one card share it over gloo (NCCL refuses them); with two or
+# more cards, one rank per card over NCCL (these cases skip under two cards).
+
+
+def _nccl_world():
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards: NCCL takes one rank per card")
+    return n
+
+
+def test_multihost_dryrun_two_ranks_share_the_card(dev, tmp_path):
+    from tvidz_tpu_torch.parallel import dryrun
+
+    s = dryrun.parent(2, "cuda", 2, large=False, out_dir=str(tmp_path))
+    assert s["ok"], s["failures"]
+    assert s["backend"] == "gloo" and s["mesh"] == {"data": 1, "corpus": 4}
+    for counts in s["launches"]:
+        assert counts["corpus_scan_tc"] > 0 and counts["fragment_search"] > 0
+
+
+@pytest.mark.parametrize("large", [False, True], ids=["small", "large"])
+def test_multihost_dryrun_nccl_one_card_per_rank(dev, tmp_path, large):
+    """Every card a rank: the ranks' answers identical, and (large) equal to
+    a single-card DeviceCorpus of the same 2^24 rows."""
+    from tvidz_tpu_torch.parallel import dryrun
+
+    n = _nccl_world()
+    s = dryrun.parent(n, "cuda", 1, large=large, out_dir=str(tmp_path),
+                      one_card_per_rank=True)
+    assert s["ok"], s["failures"]
+    assert s["backend"] == "nccl" and s["mesh"] == {"data": 1, "corpus": n}
+    for counts in s["launches"]:
+        assert counts["corpus_scan_tc"] > 0 and counts["fragment_search"] > 0
+
+
+def test_multihost_served_nccl_one_card_per_rank(dev):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _nccl_world()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "tvidz_tpu_torch.service.integration_multihost",
+         "--device", "cuda", "--quick", "--one-card-per-rank"],
+        capture_output=True, text=True, timeout=600, cwd=root)
+    assert proc.returncode == 0, (proc.stdout[-4000:], proc.stderr[-1000:])
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    for rank in summary["ranks"]:
+        assert rank["kernel_launches"]["fragment_search"] > 0
+        assert rank["kernel_launches"]["fingerprint_block"] > 0

@@ -181,20 +181,52 @@ def test_hash_modules_import_without_jax(tmp_path, module):
     assert refused == []
 
 
+def test_multihost_modules_import_without_jax(tmp_path):
+    """``parallel.distributed`` / ``collective`` and the two multi-host
+    drivers import with jax and the JAX package refused."""
+    (tmp_path / "mh_imports.py").write_text(
+        "import tvidz_tpu_torch.parallel.distributed\n"
+        "import tvidz_tpu_torch.parallel.collective\n"
+        "import tvidz_tpu_torch.parallel.dryrun\n"
+        "import tvidz_tpu_torch.service.integration_multihost\n")
+    out, refused = _run_cli(tmp_path, module="mh_imports",
+                            env_extra={"PYTHONPATH": str(tmp_path)})
+    assert json.loads(out.strip().splitlines()[-1]) == {
+        "code": 0, "jax": [], "tvidz_tpu": []}
+    assert refused == []
+
+
+def test_dryrun_rank_runs_with_jax_refused(tmp_path):
+    """One rank of the dryrun (a one-rank gloo group over ``[cpu] * 2``)
+    runs its whole scenario with jax refused."""
+    out, refused = _run_cli(
+        tmp_path, "--child", "0", "1", str(_free_port()), "--device", "cpu",
+        "--cells", "2", "--out", str(tmp_path),
+        module="tvidz_tpu_torch.parallel.dryrun")
+    assert "[host 0] OK" in out
+    assert json.loads(out.strip().splitlines()[-1]) == {
+        "code": 0, "jax": [], "tvidz_tpu": []}
+    assert refused == []
+    rank = json.loads((tmp_path / "rank0.json").read_text())
+    assert rank["mesh"] == {"data": 1, "corpus": 2}
+    assert rank["results"]["small"]["ts"] == [[113, 3]]
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def _serve_with_jax_refused(tmp_path, *argv, log_level="WARNING"):
+def _serve_with_jax_refused(tmp_path, *argv, log_level="WARNING",
+                            env_extra=None):
     """Boot the port's service (fake AWS, no poller, CPU, ``argv``) with jax
     refused; once /healthz reads ok, return (GET of a path -> JSON, the
     process). The caller stops it with ``_stop``."""
     port = _free_port()
     env = dict(os.environ, TVIDZ_TMP_DIR=str(tmp_path), TMPDIR=str(tmp_path),
                TVIDZ_FAKE_S3_ROOT=str(tmp_path / "s3"),
-               TVIDZ_LOG_LEVEL=log_level)
+               TVIDZ_LOG_LEVEL=log_level, **(env_extra or {}))
     proc = subprocess.Popen(
         [sys.executable, "-c", _NO_JAX_RUNNER, str(ROOT),
          "tvidz_tpu_torch.service.entrypoint", str(tmp_path / "refused.log"),
@@ -266,11 +298,37 @@ def test_service_entrypoint_mesh_on_one_device(tmp_path):
 
 
 def test_service_entrypoint_refuses_a_cluster(tmp_path, monkeypatch):
+    """A cluster the entrypoint cannot join — a coordinator without its
+    world size and rank — is refused before the service serves."""
     from tvidz_tpu_torch.service import entrypoint
 
     monkeypatch.setenv("TVIDZ_COORDINATOR", "localhost:1234")
-    with pytest.raises(SystemExit, match="TVIDZ_COORDINATOR"):
-        entrypoint.main(["--device", "cpu", "--mesh"])
+    monkeypatch.delenv("TVIDZ_NUM_PROCESSES", raising=False)
+    monkeypatch.delenv("TVIDZ_PROCESS_ID", raising=False)
+    monkeypatch.setenv("TVIDZ_FAKE_S3_ROOT", str(tmp_path / "s3"))
+    with pytest.raises(ValueError, match="TVIDZ_NUM_PROCESSES"):
+        entrypoint.main(["--device", "cpu", "--mesh", "--fake-aws",
+                         "--db", f"sqlite:///{tmp_path / 's.db'}"])
+
+
+def test_service_entrypoint_joins_a_cluster_with_jax_refused(tmp_path):
+    """With ``TVIDZ_COORDINATOR`` set, ``--mesh`` joins the gloo group (a
+    cluster of one here, ``[cpu] * 2`` cells) and serves through the op
+    log: /metrics carries its hygiene and /admin/evict-host is real."""
+    get, proc = _serve_with_jax_refused(
+        tmp_path, "--mesh", "--cells-per-device", "2", log_level="INFO",
+        env_extra={
+            "TVIDZ_COORDINATOR": f"127.0.0.1:{_free_port()}",
+            "TVIDZ_NUM_PROCESSES": "1", "TVIDZ_PROCESS_ID": "0",
+            "TVIDZ_MH_FP_CAPACITY": "1024"})
+    try:
+        oplog = get("/metrics")["collective_oplog"]
+        assert oplog["members"]["host-0"]["evicted"] is False
+        assert get("/healthz")["corpus_fingerprints"] == 0
+    finally:
+        out = _stop(tmp_path, proc)
+    assert ("multi-host cluster joined (1 hosts, mesh {'data': 1, "
+            "'corpus': 2})") in out
 
 
 def test_port_sources_never_import_jax():

@@ -6,12 +6,13 @@
     python -m tvidz_tpu_torch search fragment.y4m --db sqlite:///corpus.db
     python -m tvidz_tpu_torch serve --fake-aws --port 5055
     python -m tvidz_tpu_torch bench [--device cpu] [--sizes tiny]
+    python -m tvidz_tpu_torch evict-host host-2 --db sqlite:///shared.db
 
 The same commands and JSON output as ``tvidz_tpu/cli.py``, plus
 ``--device`` (default ``$TVIDZ_TORCH_DEVICE``, else ``cuda``; ``cpu`` runs
 the kernels' plain PyTorch versions; ``serve`` passes it on to the
 entrypoint with its other arguments, ``bench`` to ``tvidz_tpu_torch.bench``).
-``evict-host`` comes with a later slice (ROADMAP.md).
+``evict-host`` works on the shared store alone and needs no device.
 """
 
 from __future__ import annotations
@@ -196,6 +197,44 @@ def cmd_serve(extra) -> int:
     return 0
 
 
+def cmd_evict_host(args) -> int:
+    """Operator eviction against the SHARED STORE directly (the multi-host
+    runbook, docs/multihost.md): the /admin/evict-host route needs a
+    healthy serving member; this works when none is reachable — the
+    sentinel lands in the collective_watermarks table and every member
+    (and the pruner) reacts at its next hygiene pass."""
+    from tvidz_tpu_torch.corpus.store import Store
+
+    if not args.host.startswith("host-"):
+        print(f"error: expected a host-N member id, got {args.host!r}",
+              file=sys.stderr)
+        return 2
+    store = Store(args.db)
+    try:
+        try:
+            store.evict_collective_member(args.host)
+        except KeyError:
+            members = sorted(h for h, _s, _u in store.collective_watermarks())
+            print(f"error: {args.host} is not a registered collective "
+                  f"member (registered: {members or 'none'})",
+                  file=sys.stderr)
+            return 2
+        out = {
+            "status": "evicted",
+            "host": args.host,
+            "max_seq": store.max_collective_seq(),
+            "min_live_watermark": store.min_collective_watermark(),
+            "members": [
+                {"host": h, "seq": s, "evicted": s < 0}
+                for h, s, _ in store.collective_watermarks()
+            ],
+        }
+    finally:
+        store.close()
+    print(json.dumps(out, indent=2))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tvidz_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -235,6 +274,13 @@ def main(argv=None) -> int:
                                  "scans (arguments pass through to "
                                  "tvidz_tpu_torch.bench)")
 
+    p = sub.add_parser("evict-host", help="evict a stalled multi-host member "
+                                          "via the shared store (runbook: "
+                                          "docs/multihost.md)")
+    p.add_argument("host", help="member id, e.g. host-2")
+    p.add_argument("--db", required=True,
+                   help="the cluster's SHARED store url (sqlite/postgresql)")
+
     args, extra = parser.parse_known_args(argv)
     if args.cmd == "serve":
         return cmd_serve(extra)
@@ -250,6 +296,8 @@ def main(argv=None) -> int:
         return cmd_fingerprint(args)
     if args.cmd == "search":
         return cmd_search(args)
+    if args.cmd == "evict-host":
+        return cmd_evict_host(args)
     return cmd_ingest(args)
 
 

@@ -1,5 +1,15 @@
-"""The corpus sharded over a device mesh (port of ``tvidz_tpu/parallel``)."""
+"""The corpus sharded over a device mesh, and across processes (port of
+``tvidz_tpu/parallel``)."""
 
+from tvidz_tpu_torch.parallel.collective import (
+    CollectiveRunner,
+    MultiHostCorpusClient,
+)
+from tvidz_tpu_torch.parallel.distributed import (
+    MultiHostShardedCorpus,
+    init_distributed,
+    make_multihost_mesh,
+)
 from tvidz_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
 from tvidz_tpu_torch.parallel.mesh_corpus import MeshCorpus
 from tvidz_tpu_torch.parallel.sharded_search import (
@@ -21,4 +31,9 @@ __all__ = [
     "sharded_nearest",
     "sharded_timestamp_match",
     "multichip_analysis_step",
+    "init_distributed",
+    "make_multihost_mesh",
+    "MultiHostShardedCorpus",
+    "CollectiveRunner",
+    "MultiHostCorpusClient",
 ]

@@ -1,7 +1,8 @@
 """Corpus-sharded search over a device mesh.
 
 Port of ``tvidz_tpu/parallel/sharded_search.py`` (single process; the
-multi-process placement belongs to the multi-host port). The corpus lives
+multi-process placement is ``parallel/distributed.py``, which runs these
+searches over each rank's local mesh). The corpus lives
 sharded over the mesh's ``corpus`` axis; each shard computes local evidence
 with the port's kernels on its own device, and only the small per-shard
 vectors travel: where the reference's shard_map ``all_gather``s them, the
@@ -437,6 +438,12 @@ class ShardedCorpus:
         counts = sharded_timestamp_match(
             torch.from_numpy(q), self.corpus_ts, self.corpus_len, self.mesh,
             tolerance).cpu().numpy()
+        return self.timestamp_hits(counts, min_match, exclude_video_id)
+
+    def timestamp_hits(self, counts: np.ndarray, min_match: int,
+                       exclude_video_id: Optional[int]):
+        """[(video_id, count)] of the rows' match counts, count >= min_match,
+        count descending (stable in row order)."""
         vids = self.video_ids
         keep = (counts >= min_match) & (vids >= 0)
         if exclude_video_id is not None:
@@ -453,7 +460,12 @@ class ShardedCorpus:
         q = torch.from_numpy(np.ascontiguousarray(query_fp, np.uint32).view(np.int32))
         d, idx = sharded_hamming_topk(q, self.corpus_fp, self.mesh, k=k,
                                       valid=self.corpus_fp_valid)
-        d, idx = d.cpu().numpy(), idx.cpu().numpy()
+        return self.nearest_rows(d.cpu().numpy(), idx.cpu().numpy())
+
+    def nearest_rows(self, d: np.ndarray, idx: np.ndarray):
+        """The top-k's (M, k) distances and global indices as
+        [(distance, global_index, video_id)] lists, padding rows and
+        tombstones dropped."""
         return [
             [(int(d[m, j]), int(idx[m, j]), int(self.fp_video_ids[idx[m, j]]))
              for j in range(d.shape[1])

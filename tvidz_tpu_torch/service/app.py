@@ -5,8 +5,11 @@ framing (the wire contract of the Flask app it rebuilds, whose line refs
 are kept below), carried onto the port's ``DeviceCorpus``, ``Analyzer``,
 ``FingerprintModel``, ``SharedBlockDispatcher`` and registry, on an explicit
 ``device``. The HTTP layer (``wsgi``) is the port's copy of the reference's.
-This is one process on one GPU: the multi-host routes answer
-"not a multi-host deployment" (ROADMAP slice 3).
+In a multi-host deployment (``parallel.collective``) the entrypoint sets
+``collective_runner``: ``/metrics`` then carries the op log's hygiene,
+``/admin/evict-host`` evicts a stalled member, and ``stop`` stops the
+runner; elsewhere ``/admin/evict-host`` answers "not a multi-host
+deployment".
 
 Routes (reference line refs):
 - POST /notify                     app.py:31-44
@@ -712,6 +715,10 @@ class InspectorApp:
                 "corpus_videos": self.corpus.num_videos,
                 "corpus_fingerprints": self.corpus.num_fingerprints,
                 "ingestion": dict(self._poller_stats),
+                # The port's hand-written kernels: launches since the
+                # service became ready (the entrypoint zeroes them then).
+                "kernel_launches": {k.name: k.launches
+                                    for k in backend.KERNELS},
             }
             # Device-resident index footprint + sync accounting (churn
             # hygiene observable); absent on corpus variants without it.
@@ -730,14 +737,50 @@ class InspectorApp:
                     # blocked behind a stuck pass.
                     "pass_age_s": round(d.pass_age_s(), 1),
                 }
+            # Multi-host op-log hygiene (collective.py _hygiene): live row
+            # count, per-member watermarks, prune point, and the
+            # stalled-member lag alarm (runbook: docs/multihost.md). Read
+            # from the store alone: no collective runs here.
+            runner = getattr(self, "collective_runner", None)
+            if runner is not None:
+                out["collective_oplog"] = runner.oplog_status()
             return jsonify(out)
 
         @app.route("/admin/evict-host", methods=["POST"])
         def evict_host(request: Request):
-            """Operator eviction of a stalled collective member: only
-            meaningful in a multi-host deployment, which the port does not
-            have yet (ROADMAP slice 3)."""
-            return jsonify({"error": "not a multi-host deployment"}, 400)
+            """Operator eviction of a stalled collective member: sets the
+            EVICTED watermark sentinel so pruning stops pinning on it and
+            the member fences itself at its next hygiene pass. Framework
+            extension route (no reference counterpart); only meaningful in
+            multi-host mode."""
+            runner = getattr(self, "collective_runner", None)
+            if runner is None:
+                return jsonify(
+                    {"error": "not a multi-host deployment"}, 400)
+            data = request.get_json(silent=True) or {}
+            member = data.get("host")
+            if not member or not str(member).startswith("host-"):
+                return jsonify(
+                    {"error": "body must be {\"host\": \"host-N\"}"}, 400)
+            if member == f"host-{runner.process_index}":
+                return jsonify(
+                    {"error": "cannot evict the serving host through "
+                              "itself; call a peer"}, 400)
+            try:
+                self.store.evict_collective_member(str(member))
+            except KeyError:
+                # Unregistered member = operator typo; a 200 here would
+                # read as "runbook step done" while the actually-stalled
+                # member keeps pinning pruning.
+                return jsonify(
+                    {"error": f"{member} is not a registered collective "
+                              "member",
+                     "members": sorted(
+                         h for h, _s, _u in
+                         self.store.collective_watermarks())}, 400)
+            log("admin", f"evicted collective member {member}")
+            return jsonify({"status": "evicted", "host": member,
+                            "oplog": runner.oplog_status()})
 
         return app
 
@@ -850,6 +893,11 @@ class InspectorApp:
         self._stop.set()
         if self.block_dispatcher is not None:
             self.block_dispatcher.stop()
+        # Multi-host mode: stop the collective executor too (set by the
+        # entrypoint; None everywhere else).
+        runner = getattr(self, "collective_runner", None)
+        if runner is not None:
+            runner.stop()
 
     def poll_sqs(self) -> None:
         """Long-poll loop with at-least-once semantics (app.py:417-480):

@@ -11,8 +11,21 @@ pass per batch bucket — then mark the app ready and start the SQS poller.
 
 ``--mesh`` shards the corpus over every GPU of the host (one process,
 ``parallel.make_mesh`` and ``MeshCorpus``) where there are two or more, and
-keeps the single-card corpus otherwise. A multi-host cluster
-(``TVIDZ_COORDINATOR``) is not ported yet and raises.
+keeps the single-card corpus otherwise. ``--cells-per-device N`` repeats
+each local device N times in either mesh: it is for emulation only (tests on
+the CPU, or several ranks sharing one card), never a deployment.
+
+Multi-host: with ``TVIDZ_COORDINATOR`` (``host:port`` of rank 0),
+``TVIDZ_NUM_PROCESSES`` and ``TVIDZ_PROCESS_ID`` set, the process joins a
+``torch.distributed`` group before its first device use (NCCL on CUDA, gloo
+on the CPU or with ``TVIDZ_DIST_BACKEND=gloo``), and ``--mesh`` spans the
+ranks: each shards its rows over its own devices (every visible card; the
+CPU with ``--device cpu``), the corpus axis host-major, and every
+corpus operation runs through the shared store's op log
+(``parallel.collective``). Ranks share the durable store; each ingests its
+own uploads and any rank serves verdicts and searches over the whole
+corpus. N ranks on N cards run one per card (``CUDA_VISIBLE_DEVICES``);
+ranks that share a card need ``TVIDZ_DIST_BACKEND=gloo``.
 """
 
 from __future__ import annotations
@@ -30,14 +43,22 @@ from tvidz_tpu_torch.corpus.store import Store
 from tvidz_tpu_torch.models.fingerprint import FingerprintModel
 from tvidz_tpu_torch.ops.align import fragment_search
 from tvidz_tpu_torch.ops.hamming import corpus_frame_min, corpus_query_nearest
+from tvidz_tpu_torch.parallel.collective import (
+    CollectiveRunner,
+    MultiHostCorpusClient,
+)
+from tvidz_tpu_torch.parallel.distributed import (
+    MultiHostShardedCorpus,
+    init_distributed,
+    make_multihost_mesh,
+    process_count,
+)
 from tvidz_tpu_torch.parallel.mesh import make_mesh
 from tvidz_tpu_torch.parallel.mesh_corpus import MeshCorpus
 from tvidz_tpu_torch.pipeline.dispatcher import SharedBlockDispatcher
 from tvidz_tpu_torch.service import fakes, wsgi
 from tvidz_tpu_torch.service.app import create_app
 from tvidz_tpu_torch.utils import log
-
-_MULTI_HOST = "multi-host serving is not ported yet (ROADMAP.md, A7)"
 
 
 def build_clients(config: Config, fake: bool, fake_root: str = None):
@@ -156,9 +177,10 @@ def main(argv=None) -> None:
                         help="shard the corpus over every GPU of the host")
     parser.add_argument("--device", default=None,
                         help="cuda (default, or $TVIDZ_TORCH_DEVICE) or cpu")
+    parser.add_argument("--cells-per-device", type=int, default=1,
+                        help="emulation only: repeat each local device N "
+                             "times in the --mesh mesh (default 1)")
     args = parser.parse_args(argv)
-    if os.environ.get("TVIDZ_COORDINATOR"):
-        raise SystemExit(f"TVIDZ_COORDINATOR is set: {_MULTI_HOST}")
     device = backend.resolve_device(args.device)
 
     config = Config()
@@ -179,14 +201,58 @@ def main(argv=None) -> None:
     if not args.fake_aws:
         bootstrap(config, s3, sqs)
 
-    corpus = mesh = None
+    # Multi-host: join the torch.distributed group before first device use;
+    # --mesh then spans the ranks (parallel/distributed.py).
+    multihost = init_distributed(device=device)
+    store = Store(config.store.url)
+    corpus = mesh = runner = None
     if args.mesh:
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
+        local = [d for d in ([torch.device("cuda", i)
+                              for i in range(torch.cuda.device_count())]
+                             if device.type == "cuda" else [device])
+                 for _ in range(args.cells_per_device)]
+        n = len(local) * process_count()
         if n < 2:
             log("entrypoint", f"--mesh requested but only {n} device; "
                               "falling back to single-chip corpus")
+        elif multihost:
+            # Every corpus operation — streaming ingest and queries — runs
+            # as a collective launched by all ranks in the same order,
+            # through the shared store's op log (parallel/collective.py).
+            mesh = make_multihost_mesh(local_devices=local)
+            mh = MultiHostShardedCorpus(
+                mesh,
+                max_cuts=config.match.max_cuts,
+                words=config.hash.words,
+                hamming_threshold=config.match.hamming_threshold,
+                al_tcap=int(os.environ.get("TVIDZ_MH_AL_TCAP", "2048")),
+            )
+            runner = CollectiveRunner(
+                store, mh,
+                hamming_threshold=config.match.hamming_threshold,
+                ts_capacity=int(
+                    os.environ.get("TVIDZ_MH_TS_CAPACITY", "4096")),
+                fp_capacity=int(
+                    os.environ.get("TVIDZ_MH_FP_CAPACITY", str(1 << 18))),
+                prune_interval_s=float(
+                    os.environ.get("TVIDZ_MH_PRUNE_INTERVAL_S", "60")),
+                wm_interval_s=float(
+                    os.environ.get("TVIDZ_MH_WM_INTERVAL_S", "5")),
+                lag_alarm_ops=int(
+                    os.environ.get("TVIDZ_MH_LAG_ALARM_OPS", "1024")),
+            )
+            corpus = MultiHostCorpusClient(
+                runner, max_cuts=config.match.max_cuts)
+            device = mesh.home
+            # Any rank answers /status for analyses that ran on another
+            # (finished states live in the shared store).
+            config.service.status_store_fallback = True
+            log("entrypoint",
+                f"multi-host cluster joined ({process_count()} hosts, "
+                f"mesh {dict(mesh.shape)}); corpus sharded host-major, "
+                "all ops via the collective log")
         else:
-            mesh = make_mesh(n)
+            mesh = make_mesh(devices=local)
             corpus = MeshCorpus(
                 mesh,
                 max_cuts=config.match.max_cuts,
@@ -197,8 +263,9 @@ def main(argv=None) -> None:
             log("entrypoint", f"corpus sharded over {n} devices "
                               f"(mesh {dict(mesh.shape)})")
 
-    app = create_app(config=config, store=Store(config.store.url),
+    app = create_app(config=config, store=store,
                      corpus=corpus, s3=s3, sqs=sqs, device=device)
+    app.collective_runner = runner
     app.device_ready = False
     # Serve at once (orchestrators see the port up, /healthz says
     # "warming"), then warm the device from the main thread.
@@ -208,6 +275,12 @@ def main(argv=None) -> None:
         f"inspector serving on {config.service.host}:{config.service.port} "
         "(device warming)")
     warmup_device(config, device, mesh)
+    if runner is not None:
+        # Warm placement and the cross-rank barrier; only the executor
+        # loop runs on the runner's thread.
+        runner.start()
+    # /metrics counts the kernel launches of served work only.
+    backend.reset_launch_counts()
     app.device_ready = True
     if not args.no_poller:
         app.start_poller()

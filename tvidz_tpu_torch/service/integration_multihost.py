@@ -1,0 +1,509 @@
+"""Multi-host SERVED integration: two full inspector services — separate
+processes, two ranks of a ``torch.distributed`` group — sharing one durable
+store and one corpus sharded ACROSS the rank boundary, driven over real
+sockets.
+
+Port of ``scripts/integration_multihost.py``:
+
+  1. upload A -> rank 0's webhook; rank 0 analyzes it and ingests it into
+     the spanning corpus through the collective op log;
+  2. upload B (identical content, new name) -> rank 1; its duplicate
+     verdict comes from searches whose evidence merge crosses ranks;
+  3. rank 0 serves B's verdict from /status (analyzed on the OTHER rank);
+  4. /search/fragment on rank 0 and /search/fragments on rank 1 run over
+     the rank-sharded alignment index;
+  5. /debug/videos agrees on both ranks;
+  6. the op log is pruned to the members' minimum watermark;
+  7. a remove: a third copy is ingested, then the operator deletes its row
+     and logs a ``remove`` op, and neither rank finds it any more;
+  8. (unless ``--quick``) a drain-free cluster restart, then a dead member
+     pinning pruning -> lag alarm -> ``/admin/evict-host`` -> a real
+     member fenced -> restart re-admits it;
+  and, by the end, the fingerprint index grew online past its warm
+  capacity on both ranks.
+
+    python -m tvidz_tpu_torch.service.integration_multihost \\
+        [--device cuda|cpu] [--quick] [--store-from PATH]
+
+On one card both ranks run on cuda:0 over gloo (NCCL refuses two ranks on
+one device); ``--one-card-per-rank`` gives rank i card i alone
+(``CUDA_VISIBLE_DEVICES``) and NCCL. ``--store-from`` starts from a copy of an existing sqlite
+store (a prefilled corpus). The last line printed is one JSON object with
+each rank's op-log wall times and kernel launches; exit 0 when every check
+passed. The reference's ``--pg`` leg (a PostgreSQL wire server as the
+shared store) needs the port of MiniPG, which is not there yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+import urllib.error
+import urllib.request
+import uuid
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# The warm fingerprint capacity (one 128-row block a shard at 8 shards):
+# the uploads outgrow it, so every run grows the index online.
+FP_CAPACITY = 1024
+UPLOAD_FRAMES = 400
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(method: str, url: str, body=None, timeout: float = 10.0):
+    """(status, parsed JSON body); (None, None) when nothing answered."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, method=method,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        try:
+            return e.code, json.loads(e.read() or b"null")
+        except ValueError:
+            return e.code, None
+    except (urllib.error.URLError, OSError, ValueError):
+        return None, None
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="cuda (default, or $TVIDZ_TORCH_DEVICE) or cpu")
+    ap.add_argument("--quick", action="store_true",
+                    help="skip the restart and eviction legs")
+    ap.add_argument("--store-from", default=None,
+                    help="start from a copy of this sqlite store")
+    ap.add_argument("--one-card-per-rank", action="store_true",
+                    help="rank i on CUDA card i alone, over NCCL")
+    ap.add_argument("--pg", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.pg:
+        print("[mh-integration] --pg needs the port of MiniPG "
+              "(tvidz_tpu/service/minipg.py), which is not there yet",
+              file=sys.stderr)
+        return 2
+    from tvidz_tpu_torch import backend
+
+    # Raises without a card unless the CPU was asked for.
+    args.device = backend.resolve_device(args.device).type
+    # Mesh cells per rank: [cpu] * 4 (the reference's 4 virtual devices a
+    # host), or the rank's card.
+    cells = 4 if args.device == "cpu" else 1
+
+    from tvidz_tpu_torch.corpus.store import Store
+    from tvidz_tpu_torch.decode.synthetic import synthetic_video
+    from tvidz_tpu_torch.decode.y4m import write_y4m
+
+    workdir = tempfile.mkdtemp(prefix="tvidz-mh-")
+    fake_root = os.path.join(workdir, "s3")
+    bucket_dir = os.path.join(fake_root, "videos")
+    os.makedirs(bucket_dir)
+    os.makedirs(os.path.join(workdir, "tmp"))
+    db_path = os.path.join(workdir, "shared.db")
+    if args.store_from:
+        shutil.copy(args.store_from, db_path)
+    db_url = f"sqlite:///{db_path}"
+    # The schema (and sqlite's WAL switch) before the ranks open it: two
+    # ranks joined by init_process_group open it at the same instant.
+    Store(db_url).close()
+    ports = (free_port(), free_port())
+    bases = [f"http://127.0.0.1:{p}" for p in ports]
+    servers, logs, failures = [], [], []
+    timings = {}
+    gen = [0]
+
+    def check(name, cond, detail=""):
+        print(f"[mh-integration] {'PASS' if cond else 'FAIL'}: {name} "
+              f"{str(detail)[:600] if not cond else ''}", flush=True)
+        if not cond:
+            failures.append(name)
+
+    def spawn_cluster(coord):
+        for pid, port in enumerate(ports):
+            env = {
+                **os.environ,
+                "PYTHONPATH": os.pathsep.join(
+                    [ROOT] + [p for p in os.environ.get("PYTHONPATH", "")
+                              .split(os.pathsep) if p]),
+                "TVIDZ_COORDINATOR": f"127.0.0.1:{coord}",
+                "TVIDZ_NUM_PROCESSES": "2",
+                "TVIDZ_PROCESS_ID": str(pid),
+                "TVIDZ_FAKE_S3_ROOT": fake_root,
+                "TVIDZ_TMP_DIR": os.path.join(workdir, "tmp"),
+                "TVIDZ_LOG_LEVEL": "INFO",
+                # Small capacities: fast placement, and growth past them.
+                "TVIDZ_MH_TS_CAPACITY": "64",
+                "TVIDZ_MH_FP_CAPACITY": str(FP_CAPACITY),
+                "TVIDZ_MH_AL_TCAP": "256",
+                # Every analysis runs to completion (the fragment check
+                # needs the copy's whole index row).
+                "TVIDZ_EARLY_EXIT": "0",
+                # Fast pruning, heartbeats and a tiny alarm threshold so the
+                # hygiene and stalled-member legs finish in seconds.
+                "TVIDZ_MH_PRUNE_INTERVAL_S": "2",
+                "TVIDZ_MH_WM_INTERVAL_S": "1",
+                "TVIDZ_MH_LAG_ALARM_OPS": "5",
+            }
+            if args.one_card_per_rank:
+                env["CUDA_VISIBLE_DEVICES"] = str(pid)
+            elif args.device == "cuda":
+                env.setdefault("TVIDZ_DIST_BACKEND", "gloo")
+            else:
+                # The CPU ranks share this machine's cores.
+                env.setdefault("OMP_NUM_THREADS", "1")
+            # Server logs go to FILES (an undrained pipe blocks the server).
+            lf = open(os.path.join(workdir, f"host{pid}.gen{gen[0]}.log"), "w")
+            logs.append(lf)
+            servers.append(subprocess.Popen(
+                [sys.executable, "-m", "tvidz_tpu_torch.service.entrypoint",
+                 "--fake-aws", "--mesh", "--db", db_url, "--device", args.device,
+                 "--cells-per-device", str(cells),
+                 "--host", "127.0.0.1", "--port", str(port)],
+                cwd=ROOT, env=env, stdout=lf, stderr=subprocess.STDOUT))
+        gen[0] += 1
+
+    def stop_cluster():
+        for p in servers:
+            p.terminate()
+        for p in servers:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        servers.clear()
+
+    def wait_healthy(tag=""):
+        t0 = time.perf_counter()
+        deadline = time.time() + 420
+        ready = [False, False]
+        while time.time() < deadline and not all(ready):
+            if any(p.poll() is not None for p in servers):
+                break
+            for i, base in enumerate(bases):
+                if not ready[i]:
+                    _, body = http("GET", f"{base}/healthz", timeout=2)
+                    ready[i] = bool(body) and body.get("status") == "ok"
+            time.sleep(0.25)
+        timings[f"boot_s{tag}"] = time.perf_counter() - t0
+        check(f"both hosts healthy{tag}", all(ready))
+        if not all(ready):
+            raise TimeoutError("hosts never became healthy")
+
+    def metrics(i):
+        _, body = http("GET", f"{bases[i]}/metrics", timeout=10)
+        return body or {}
+
+    try:
+        spawn_cluster(free_port())
+        wait_healthy()
+
+        luma, pts = synthetic_video(UPLOAD_FRAMES, 240, 320, cut_frames=(50, 110),
+                                    seed=5)
+        src = os.path.join(workdir, "mh-orig.y4m")
+        write_y4m(src, luma, fps=25.0)
+        expected_cuts = [round(float(pts[50]), 6), round(float(pts[110]), 6)]
+
+        def deliver(host_i, key):
+            shutil.copy(src, os.path.join(bucket_dir, key))
+            status, _ = http("POST", f"{bases[host_i]}/notify", {
+                "Records": [{"s3": {"bucket": {"name": "videos"},
+                                    "object": {"key": key}}}]})
+            return status == 200
+
+        def wait_done(host_i, name, timeout=240):
+            end = time.time() + timeout
+            last = {}
+            while time.time() < end:
+                _, body = http("GET", f"{bases[host_i]}/status/{name}", timeout=5)
+                if body:
+                    last = body
+                    if last.get("status") in ("done", "error"):
+                        return last
+                time.sleep(0.25)
+            return last
+
+        def n_videos(i):
+            _, payload = http("GET", f"{bases[i]}/debug/videos")
+            if isinstance(payload, list):
+                return len(payload)
+            return len((payload or {}).get("videos", []))
+
+        # 1. Rank 0 analyzes the original.
+        t0 = time.perf_counter()
+        check("upload A delivered (host 0)", deliver(0, "mh-orig.y4m"))
+        a = wait_done(0, "mh-orig.y4m")
+        timings["upload_a_s"] = time.perf_counter() - t0
+        check("A done on host 0", a.get("status") == "done", a)
+        check("A cuts", a.get("scene_cuts") == expected_cuts,
+              f"{a.get('scene_cuts')} vs {expected_cuts}")
+        check("A no dups", a.get("duplicates") in ([], None), a)
+
+        # 2. Identical content, new name -> rank 1.
+        t0 = time.perf_counter()
+        check("upload B delivered (host 1)",
+              deliver(1, "1755400000000-mh-copy.y4m"))
+        b = wait_done(1, "1755400000000-mh-copy.y4m")
+        timings["upload_b_s"] = time.perf_counter() - t0
+        check("B done on host 1", b.get("status") == "done", b)
+        check("B duplicate verdict names A",
+              b.get("duplicates") == ["mh-orig.y4m"], b)
+
+        # 3. The OTHER rank serves B's verdict (store fallback).
+        _, b0 = http("GET", f"{bases[0]}/status/mh-copy.y4m")
+        b0 = b0 or {}
+        check("host 0 serves B's verdict",
+              b0.get("status") == "done"
+              and b0.get("duplicates") == ["mh-orig.y4m"], b0)
+        _, a1 = http("GET", f"{bases[1]}/status/mh-orig.y4m")
+        check("host 1 serves A's state", (a1 or {}).get("status") == "done", a1)
+
+        # 4. Cross-rank fragment search served by rank 0: a span of A is
+        #    located inside the OTHER ingested copy.
+        t0 = time.perf_counter()
+        status, body = http("POST", f"{bases[0]}/search/fragment", {
+            "filename": "mh-orig.y4m", "start_frame": 60, "num_frames": 40,
+        }, timeout=120)
+        timings["search_fragment_s"] = time.perf_counter() - t0
+        check("fragment search http 200 (host 0)", status == 200, body)
+        if status == 200:
+            matches = body.get("matches", [])
+            check("fragment locates the copy cross-host",
+                  bool(matches)
+                  and matches[0]["filename"] == "mh-copy.y4m"
+                  and matches[0]["match_count"] >= 35, matches)
+
+        # 4b. Batch fragment search served by rank 1: one "fragments" op.
+        status, body = http("POST", f"{bases[1]}/search/fragments", {
+            "queries": [
+                {"filename": "mh-orig.y4m", "start_frame": 60,
+                 "num_frames": 40, "exclude_self": True},
+                {"filename": "mh-copy.y4m", "start_frame": 10,
+                 "num_frames": 30, "exclude_self": True},
+            ], "top_k": 3}, timeout=120)
+        check("batch fragment search http 200 (host 1)", status == 200, body)
+        if status == 200:
+            results = body.get("results", [])
+            ok = (len(results) == 2
+                  and results[0]["matches"]
+                  and results[0]["matches"][0]["filename"] == "mh-copy.y4m"
+                  and results[1]["matches"]
+                  and results[1]["matches"][0]["filename"] == "mh-orig.y4m")
+            check("batch fragments locate both copies cross-host", ok, results)
+
+        # 5. Both ranks agree on the corpus.
+        base_videos = n_videos(0)
+        check("both hosts see the same videos",
+              base_videos == n_videos(1) and base_videos >= 2, base_videos)
+
+        # 6. Op-log hygiene: applied rows (ingest payloads included) are
+        #    reclaimed down to the live floor, by whichever rank's pruner
+        #    gets there first.
+        deadline = time.time() + 60
+        oplogs = []
+        while time.time() < deadline:
+            oplogs = [metrics(i).get("collective_oplog", {}) for i in range(2)]
+            if (sum(o.get("pruned_total", 0) for o in oplogs) > 0
+                    and oplogs[0].get("rows", 99) <= 2):
+                break
+            time.sleep(0.5)
+        check("op log pruned to the min member watermark",
+              sum(o.get("pruned_total", 0) for o in oplogs) > 0
+              and oplogs[0].get("rows", 99) <= 2, oplogs)
+
+        # 7. A remove, as the analyzer's supersede path makes it: a third
+        #    copy is ingested, then the operator deletes its durable row and
+        #    logs a "remove" op, which tombstones it on every rank.
+        check("upload G delivered (host 0)",
+              deliver(0, "1755450000000-mh-gone.y4m"))
+        g = wait_done(0, "1755450000000-mh-gone.y4m")
+        check("G done, naming A and B",
+              g.get("status") == "done" and sorted(g.get("duplicates") or [])
+              == ["mh-copy.y4m", "mh-orig.y4m"], g)
+
+        def fragment_names(i):
+            _, body = http("POST", f"{bases[i]}/search/fragment", {
+                "filename": "mh-copy.y4m", "start_frame": 60,
+                "num_frames": 40, "top_k": 5}, timeout=120)
+            return [m["filename"] for m in (body or {}).get("matches", [])]
+
+        check("G found before the remove", "mh-gone.y4m" in fragment_names(1),
+              fragment_names(1))
+        store = Store(db_url)
+        try:
+            g_row = store.get_video_by_filename("mh-gone.y4m")
+            store.delete_video(g_row.id)
+            store.append_collective_op(
+                "remove", {"video_id": int(g_row.id), "op": uuid.uuid4().hex,
+                           "src": -1})
+        finally:
+            store.close()
+        deadline = time.time() + 60
+        while time.time() < deadline and "mh-gone.y4m" in fragment_names(1):
+            time.sleep(0.5)
+        for i in range(2):
+            names = fragment_names(i)
+            check(f"removed video no longer found (host {i})",
+                  "mh-gone.y4m" not in names and "mh-orig.y4m" in names, names)
+        check("both hosts see the video gone",
+              n_videos(0) == n_videos(1) == base_videos, base_videos)
+
+        if not args.quick:
+            restart_and_evict(args, spawn_cluster, stop_cluster, wait_healthy,
+                              deliver, wait_done, metrics, check, bases, db_url)
+
+        # Growth: the fingerprint index outgrew --fp-capacity online, on
+        # every rank at the same op.
+        for pid in range(2):
+            text = "".join(open(os.path.join(workdir, f"host{pid}.gen{g}.log")).read()
+                           for g in range(gen[0]))
+            check(f"host {pid} grew its fingerprint index online",
+                  "fingerprint capacity grown" in text)
+        per_rank = []
+        for i in range(2):
+            m = metrics(i)
+            per_rank.append({
+                "op_wall_ms": m.get("collective_oplog", {}).get("op_wall_ms"),
+                "kernel_launches": m.get("kernel_launches"),
+                "corpus_fingerprints": m.get("corpus_fingerprints")})
+    except TimeoutError:
+        per_rank = []
+    finally:
+        stop_cluster()
+        for lf in logs:
+            lf.close()
+        if failures:
+            import glob
+
+            for path in sorted(glob.glob(os.path.join(workdir, "host*.log"))):
+                print(f"---- {os.path.basename(path)} tail ----")
+                print("\n".join(open(path).read().splitlines()[-40:]))
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    if failures:
+        print(f"[mh-integration] FAILED: {failures}")
+    else:
+        print("[mh-integration] ALL CHECKS PASSED")
+    print(json.dumps({"ok": not failures, "failures": failures,
+                      "device": args.device, "cells": cells,
+                      "timings": timings, "ranks": per_rank}))
+    return 1 if failures else 0
+
+
+def restart_and_evict(args, spawn_cluster, stop_cluster, wait_healthy, deliver,
+                      wait_done, metrics, check, bases, db_url) -> None:
+    """The reference's legs 7 and 8: a drain-free cluster restart, then a
+    dead member pinning pruning -> alarm -> eviction -> a real member
+    fenced -> restart re-admits it."""
+    from tvidz_tpu_torch.corpus.store import Store
+
+    stop_cluster()
+    spawn_cluster(free_port())
+    wait_healthy(" after cluster restart")
+    _, b0r = http("GET", f"{bases[0]}/status/mh-copy.y4m")
+    b0r = b0r or {}
+    check("restarted host 0 serves pre-restart verdict",
+          b0r.get("status") == "done"
+          and b0r.get("duplicates") == ["mh-orig.y4m"], b0r)
+    check("upload C delivered post-restart (host 1)",
+          deliver(1, "1755500000000-mh-third.y4m"))
+    c = wait_done(1, "1755500000000-mh-third.y4m")
+    check("C done on restarted cluster", c.get("status") == "done", c)
+    check("C dedups against pre-restart corpus",
+          sorted(c.get("duplicates") or []) == ["mh-copy.y4m", "mh-orig.y4m"], c)
+    _, c0 = http("GET", f"{bases[0]}/status/mh-third.y4m")
+    c0 = c0 or {}
+    check("host 0 serves C's verdict cross-host",
+          c0.get("status") == "done"
+          and sorted(c0.get("duplicates") or []) == ["mh-copy.y4m", "mh-orig.y4m"],
+          c0)
+
+    # A member that departed while its watermark row remains pins pruning
+    # while the surviving cluster keeps ingesting: a ghost member.
+    ghost_store = Store(db_url)
+    ghost_store.set_collective_watermark(
+        "host-2", ghost_store.max_collective_seq(), time.time())
+    for i in range(3):
+        check(f"upload evict-{i} delivered during ghost pin (host {i % 2})",
+              deliver(i % 2, f"17556000000{i:02d}-mh-evict{i}.y4m"))
+        wait_done(i % 2, f"mh-evict{i}.y4m")
+    deadline = time.time() + 120
+    oplog = {}
+    while time.time() < deadline:
+        oplog = metrics(0).get("collective_oplog", {})
+        if oplog.get("lag_alarm"):
+            break
+        time.sleep(0.5)
+    check("dead member pins pruning and raises the lag alarm",
+          oplog.get("lag_alarm") is True
+          and oplog.get("members", {}).get("host-2", {}).get("seq")
+          == oplog.get("min_watermark"), oplog)
+    status, body = http("POST", f"{bases[1]}/admin/evict-host", {"host": "host-2"})
+    check("admin eviction accepted", status == 200, body)
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        oplog = metrics(0).get("collective_oplog", {})
+        if not oplog.get("lag_alarm") and oplog.get("rows", 99) <= 2:
+            break
+        time.sleep(0.5)
+    check("eviction unpins pruning; log bounded under ingest again",
+          not oplog.get("lag_alarm") and oplog.get("rows", 99) <= 2, oplog)
+    _, d0 = http("GET", f"{bases[0]}/status/mh-third.y4m")
+    check("no divergence: verdicts serve through the eviction",
+          (d0 or {}).get("status") == "done", d0)
+
+    # Fence a REAL (healthy) member as the final act before restart: it
+    # discovers the sentinel and refuses to serve.
+    status, body = http("POST", f"{bases[0]}/admin/evict-host", {"host": "host-1"})
+    check("real-member eviction accepted", status == 200, body)
+    deadline = time.time() + 60
+    fenced = {}
+    while time.time() < deadline:
+        fenced = metrics(1).get("collective_oplog", {})
+        if fenced.get("evicted_self"):
+            break
+        time.sleep(0.5)
+    check("evicted member fences itself (refuses to serve)",
+          fenced.get("evicted_self") is True, fenced)
+    ghost_store.close()
+
+    # Operator restart (the one sanctioned re-admission path).
+    stop_cluster()
+    spawn_cluster(free_port())
+    wait_healthy(" after eviction restart")
+    oplog = metrics(1).get("collective_oplog", {})
+    check("restart re-admits the evicted member",
+          oplog.get("evicted_self") is False
+          and oplog.get("members", {}).get("host-1", {}).get("evicted") is False
+          and "host-2" not in oplog.get("members", {}), oplog)
+    _, d0 = http("GET", f"{bases[0]}/status/mh-third.y4m")
+    d0 = d0 or {}
+    check("pre-eviction verdicts survive the cycle",
+          d0.get("status") == "done"
+          and sorted(d0.get("duplicates") or []) == ["mh-copy.y4m", "mh-orig.y4m"],
+          d0)
+    check("upload D delivered post-eviction-restart (host 1)",
+          deliver(1, "1755700000000-mh-fourth.y4m"))
+    d = wait_done(1, "mh-fourth.y4m")
+    check("D dedups against the full corpus post-eviction",
+          d.get("status") == "done" and "mh-orig.y4m" in (d.get("duplicates") or []),
+          d)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
