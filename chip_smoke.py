@@ -38,6 +38,13 @@ fingerprints through K3 and K4), then:
   against a single-card DeviceCorpus, and two served ranks on one shared
   store warmed with 2^20 fingerprints (``--quick``), each rank reporting
   its kernel launches;
+- ``wire_stack``: the service as its own process over the real wire — the
+  integration driver with presigned uploads to the port's MiniAWS and
+  every store operation over the PostgreSQL wire protocol to the port's
+  MiniPG (a 2^20-fingerprint store restored at boot, a MiniPG restart
+  while an upload is analyzed), the same driver with ``--mesh``, the
+  served multi-host driver with MiniPG as the shared store, and the soak
+  (40 uploads, 4 in flight);
 
 and time it. Launch counts are zeroed before and read after each of those
 paths.
@@ -2367,6 +2374,94 @@ def drive_multihost(work: str, smi: str) -> dict:
     return launches
 
 
+def _built_libraries() -> dict:
+    """The kernel libraries in the build directory, with their mtimes."""
+    from tvidz_tpu_torch import backend
+
+    if not os.path.isdir(backend.BUILD_DIR):
+        return {}
+    return {f: os.path.getmtime(os.path.join(backend.BUILD_DIR, f))
+            for f in os.listdir(backend.BUILD_DIR) if f.endswith(".so")}
+
+
+def drive_wire_stack(work: str, smi: str) -> dict:
+    """Phase ``wire_stack``: the service as production deploys it, its own
+    process on cuda:0, over the real wire:
+
+    (a) ``service.integration --real-clients --pg --store-from``: uploads
+        as presigned PUTs to the port's MiniAWS, the S3 notification to SQS
+        over HTTP, the poller, the analyzer (K1), the verdict (K4
+        ``query_nearest``), fragment search (K3), and every store operation
+        over the PostgreSQL wire protocol to the port's MiniPG, which serves
+        a copy of a fresh 2^20-fingerprint ``prefill_store`` (restored at
+        boot over the wire); MiniPG is down when a third upload arrives and
+        comes back once a store operation of it has failed;
+    (b) the same driver with ``--mesh`` (the corpus over ``[cuda:0] * 8``)
+        and ``--real-clients``, on an empty sqlite store;
+    (c) ``service.integration_multihost --pg --quick``: two rank processes
+        on cuda:0 over gloo with MiniPG, serving the same prefill, as the
+        store they coordinate through;
+    (d) ``service.soak``: 40 uploads, 4 in flight, RSS and device memory
+        once warm and at the end.
+
+    Each service process counts its launches from its ready point and
+    reports them; (a) and (b) must launch K1, K4 and K3 (the routes they
+    drive reach K4 only through ``nearest_video_counts``: its
+    ``query_nearest`` mode). The kernels were built by the ``build`` phase:
+    no process here may build one again."""
+    from tvidz_tpu_torch.ops import align, fused, hamming
+
+    import torch
+
+    torch.cuda.empty_cache()
+    libraries = _built_libraries()
+    t_phase = time.perf_counter()
+    db = os.path.join(work, "wire_prefill.db")
+    n_fp = prefill_store(db)
+    legs, walls = {}, {}
+    for leg, argv in (
+            ("a", ["tvidz_tpu_torch.service.integration", "--device", "cuda",
+                   "--real-clients", "--pg", "--store-from", db]),
+            ("b", ["tvidz_tpu_torch.service.integration", "--device", "cuda",
+                   "--real-clients", "--mesh"]),
+            ("c", ["tvidz_tpu_torch.service.integration_multihost", "--device",
+                   "cuda", "--pg", "--quick", "--store-from", db]),
+            ("d", ["tvidz_tpu_torch.service.soak", "--device", "cuda"])):
+        t0 = time.perf_counter()
+        legs[leg] = _run_driver(argv, f"wire_stack ({leg})", 400)
+        walls[leg] = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    names = (fused.K1, hamming.K2, align.K3, hamming.K4)
+    per_leg = {leg: ([r["kernel_launches"] for r in legs[leg]["ranks"]]
+                     if leg == "c" else [legs[leg]["kernel_launches"]])
+               for leg in legs}
+    for leg in ("a", "b"):
+        counts = per_leg[leg][0]
+        check(all(counts[k.name] > 0 for k in (fused.K1, hamming.K4, align.K3)),
+              f"wire_stack ({leg}): launched {counts}")
+    rebuilt = sorted(f for f, t in _built_libraries().items()
+                     if libraries.get(f) != t)
+    check(not rebuilt, f"wire_stack: kernels built again: {rebuilt}")
+    launches = {k.name: sum(c[k.name] for cs in per_leg.values() for c in cs)
+                for k in names}
+    a, b, c, d = (legs[k] for k in "abcd")
+    phase("wire_stack", card=smi, seconds=phase_s,
+          leg_seconds=walls, legs_passed=sorted(legs),
+          prefill_fingerprints=n_fp, kernels_rebuilt=rebuilt,
+          k4_mode="query_nearest",
+          a={"timings": a["timings"], "upload_format": a["upload_format"],
+             "failover": a["failover"],
+             "rows_after_failover": a["rows_after_failover"],
+             "fragment_match_count": a["fragment_match_count"],
+             "block_dispatcher": a["block_dispatcher"],
+             "launches": per_leg["a"][0]},
+          b={"timings": b["timings"], "launches": per_leg["b"][0]},
+          c={"timings": c["timings"], "ranks": c["ranks"]},
+          d={k: v for k, v in d.items() if k not in ("ok", "failures")},
+          launches=launches)
+    return launches
+
+
 def drive_bench(smi: str) -> dict:
     """The port's ``bench`` entry point at reduced passes (``--sizes smoke``:
     the leg shapes of the full run, fewer repetitions), through its CLI;
@@ -2689,6 +2784,7 @@ def main(argv=None) -> int:
         path_launches["bench_legs"] = drive_bench_legs(smi)
         path_launches["mesh"] = drive_mesh(dev, work, url, smi)
         path_launches["multihost"] = drive_multihost(work, smi)
+        path_launches["wire_stack"] = drive_wire_stack(work, smi)
 
         stream_bound = k1_bound(K1_VALUE_FRAMES)
         times["k1_stream"].update(

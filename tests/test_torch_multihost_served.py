@@ -46,3 +46,16 @@ def test_two_process_served_integration():
         assert set(rank["kernel_launches"]) == {
             "fingerprint_block", "corpus_scan", "corpus_scan_tc",
             "fragment_search"}
+
+
+def test_two_process_served_integration_over_pg():
+    """``--pg --quick``: the shared store both ranks coordinate through (op
+    log, watermarks, persistence) is the port's MiniPG over pgwire."""
+    rc, out, err = run_driver(
+        ["tvidz_tpu_torch.service.integration_multihost", "--device", "cpu",
+         "--quick", "--pg"], timeout=110)
+    assert rc == 0, (out[-4000:], err[-1000:])
+    assert "MiniPG shared store on" in out
+    assert "[mh-integration] ALL CHECKS PASSED" in out
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert summary["ok"] and summary["pg"] and len(summary["ranks"]) == 2

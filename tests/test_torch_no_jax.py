@@ -196,6 +196,28 @@ def test_multihost_modules_import_without_jax(tmp_path):
     assert refused == []
 
 
+def test_wire_modules_import_without_jax(tmp_path):
+    """MiniAWS, MiniPG and the two full-stack drivers import with jax and
+    the JAX package refused, and MiniPG serves the port's Store there."""
+    (tmp_path / "wire_imports.py").write_text(
+        "import tvidz_tpu_torch.service.miniaws\n"
+        "import tvidz_tpu_torch.service.integration\n"
+        "import tvidz_tpu_torch.service.soak\n"
+        "from tvidz_tpu_torch.corpus.store import Store\n"
+        "from tvidz_tpu_torch.service.minipg import start_minipg\n"
+        "server = start_minipg(auth_mode='md5', users={'u': 'p'})\n"
+        "store = Store(f'postgresql://u:p@127.0.0.1:{server.port}/db')\n"
+        "assert store.add_video('a.mp4').filename == 'a.mp4'\n"
+        "store.close()\n"
+        "server.shutdown()\n")
+    out, refused = _run_cli(tmp_path, module="wire_imports",
+                            env_extra={"PYTHONPATH": str(tmp_path),
+                                       "TVIDZ_PG_DRIVER": "pgwire"})
+    assert json.loads(out.strip().splitlines()[-1]) == {
+        "code": 0, "jax": [], "tvidz_tpu": []}
+    assert refused == []
+
+
 def test_dryrun_rank_runs_with_jax_refused(tmp_path):
     """One rank of the dryrun (a one-rank gloo group over ``[cpu] * 2``)
     runs its whole scenario with jax refused."""
