@@ -43,8 +43,11 @@ fingerprints through K3 and K4), then:
   every store operation over the PostgreSQL wire protocol to the port's
   MiniPG (a 2^20-fingerprint store restored at boot, a MiniPG restart
   while an upload is analyzed), the same driver with ``--mesh``, the
-  served multi-host driver with MiniPG as the shared store, and the soak
-  (40 uploads, 4 in flight);
+  served multi-host driver with MiniPG as the shared store, the soak
+  (40 uploads, 4 in flight), the soak with ``--mesh`` (20 uploads over
+  ``[cuda:0] * 8``) and the multi-host soak (12 uploads alternating two
+  ranks on cuda:0, the op log bounded under ingest), and K1's hashes of
+  the soaks' uploads against ``golden.phash``;
 
 and time it. Launch counts are zeroed before and read after each of those
 paths.
@@ -229,7 +232,8 @@ def device_ms_by_kernel(fn, reps: int, tries: int = 6) -> dict:
     raise SmokeFailure(
         f"torch.profiler recorded no two matching windows of device work in "
         f"{tries} tries of {reps} calls; the last window's items and counts: "
-        f"{sorted((k[:50], c) for k, (_, c) in t.items())}")
+        f"{sorted((k[:50], c) for k, (_, c) in t.items())}; the windows kept: "
+        f"{[sorted((k[:50], n) for k, (_, n) in w.items()) for w in seen]}")
 
 
 def device_ms(fn, reps: int) -> float:
@@ -314,6 +318,21 @@ def scan_bound(m: int, n: int, words: int):
 # -- phase 3: K1 -----------------------------------------------------------------
 
 
+def golden_bits_histogram(luma, words) -> dict:
+    """How many frames' K1 hashes ``words`` (T, 2) differ from
+    ``golden.phash`` of ``luma`` (T, H, W) uint8 by 0, 1, 2 and more bits
+    (the reference's own golden bar is 2 bits a frame)."""
+    import numpy as np
+
+    from tvidz_tpu_torch.ops import golden
+
+    want = np.stack([golden.phash(f) for f in luma])
+    bits = popcount_rows(np.ascontiguousarray(words).view(np.uint32) ^ want)
+    return {"0": int((bits == 0).sum()), "1": int((bits == 1).sum()),
+            "2": int((bits == 2).sum()), ">2": int((bits > 2).sum()),
+            "max": int(bits.max())}
+
+
 def check_fingerprint_block(dev):
     import numpy as np
     import torch
@@ -328,7 +347,9 @@ def check_fingerprint_block(dev):
     synth_luma, _ = synthetic.synthetic_video(
         3 * FRAMES + 50, HEIGHT, WIDTH, cut_frames=(40, 200, 300), seed=SEED)
     max_err, max_bits, differing, frames, ulps = 0.0, 0, 0, 0, 0.0
-    for luma in (random_luma, synth_luma):
+    vs_golden = {}
+    for tag, luma in (("random", random_luma), ("synthetic", synth_luma)):
+        k1_words = []
         ck = fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev)
         cp = fused.initial_fingerprint_carry(HEIGHT, WIDTH, dev)
         for s in range(0, luma.shape[0], FRAMES):
@@ -343,6 +364,7 @@ def check_fingerprint_block(dev):
             torch.cuda.synchronize()
             check(torch.isfinite(sk).all().item(), "K1 scores not finite")
             max_err = max(max_err, (sk[:t] - sp[:t]).abs().max().item())
+            k1_words.append(phash.words_to_numpy(fk[:t]))
             bits = popcount_rows(phash.words_to_numpy(fk[:t])
                                  ^ phash.words_to_numpy(fp[:t]))
             max_bits = max(max_bits, int(bits.max()))
@@ -352,6 +374,7 @@ def check_fingerprint_block(dev):
                   and bool(ck.scene.has_prev) and bool(cp.scene.has_prev),
                   "K1 carry frame differs from the plain version")
             ulps = max(ulps, mafd_ulps(ck.scene.prev_mafd, cp.scene.prev_mafd))
+        vs_golden[tag] = golden_bits_histogram(luma, np.concatenate(k1_words))
     check(max_err <= SCORE_TOL, f"K1 scores differ by {max_err} > {SCORE_TOL}")
     check(max_bits <= HASH_BITS_TOL,
           f"K1 hashes differ by {max_bits} bits > {HASH_BITS_TOL}")
@@ -377,7 +400,7 @@ def check_fingerprint_block(dev):
           hash_max_bit_diff=max_bits, hash_bits_tol=HASH_BITS_TOL,
           carry_mafd_max_ulps=ulps, carry_mafd_ulps_tol=MAFD_ULPS_TOL,
           frames_not_bit_identical=differing, median_pack_rows_exact=low.shape[0],
-          batch=batch, stream=stream)
+          k1_vs_golden_bits=vs_golden, batch=batch, stream=stream)
     return max_err
 
 
@@ -2402,13 +2425,22 @@ def drive_wire_stack(work: str, smi: str) -> dict:
         on cuda:0 over gloo with MiniPG, serving the same prefill, as the
         store they coordinate through;
     (d) ``service.soak``: 40 uploads, 4 in flight, RSS and device memory
-        once warm and at the end.
+        once warm and at the end;
+    (e) ``service.soak --mesh``: 20 uploads to the service with the corpus
+        over ``[cuda:0] * 8``;
+    (f) ``service.soak_multihost``: 12 uploads alternating two rank
+        processes on cuda:0 over gloo (both ``--mesh``, one shared sqlite
+        store), the op log's row count sampled throughout, at most 64, and
+        pruned to the live floor at the end.
 
     Each service process counts its launches from its ready point and
-    reports them; (a) and (b) must launch K1, K4 and K3 (the routes they
-    drive reach K4 only through ``nearest_video_counts``: its
-    ``query_nearest`` mode). The kernels were built by the ``build`` phase:
-    no process here may build one again."""
+    reports them; (a) and (b) must launch K1, K4 and K3, (e) and each rank
+    of (f) K1 and K4 (the routes they drive reach K4 only through
+    ``nearest_video_counts``: its ``query_nearest`` mode). The kernels were
+    built by the ``build`` phase: no process here may build one again.
+    Last, K1's hashes of the uploads of (e) and (f), decoded as the
+    service decodes them, are held against ``golden.phash``: the
+    histogram of bits that differ a frame."""
     from tvidz_tpu_torch.ops import align, fused, hamming
 
     import torch
@@ -2426,25 +2458,35 @@ def drive_wire_stack(work: str, smi: str) -> dict:
                    "--real-clients", "--mesh"]),
             ("c", ["tvidz_tpu_torch.service.integration_multihost", "--device",
                    "cuda", "--pg", "--quick", "--store-from", db]),
-            ("d", ["tvidz_tpu_torch.service.soak", "--device", "cuda"])):
+            ("d", ["tvidz_tpu_torch.service.soak", "--device", "cuda"]),
+            ("e", ["tvidz_tpu_torch.service.soak", "--mesh", "--device",
+                   "cuda"]),
+            ("f", ["tvidz_tpu_torch.service.soak_multihost", "--device",
+                   "cuda"])):
         t0 = time.perf_counter()
         legs[leg] = _run_driver(argv, f"wire_stack ({leg})", 400)
         walls[leg] = time.perf_counter() - t0
     phase_s = time.perf_counter() - t_phase
     names = (fused.K1, hamming.K2, align.K3, hamming.K4)
     per_leg = {leg: ([r["kernel_launches"] for r in legs[leg]["ranks"]]
-                     if leg == "c" else [legs[leg]["kernel_launches"]])
+                     if leg in ("c", "f") else [legs[leg]["kernel_launches"]])
                for leg in legs}
     for leg in ("a", "b"):
         counts = per_leg[leg][0]
         check(all(counts[k.name] > 0 for k in (fused.K1, hamming.K4, align.K3)),
               f"wire_stack ({leg}): launched {counts}")
+    # Every rank of (f) ingests: the uploads alternate the two hosts.
+    for leg in ("e", "f"):
+        for counts in per_leg[leg]:
+            check(all(counts[k.name] > 0 for k in (fused.K1, hamming.K4)),
+                  f"wire_stack ({leg}): launched {counts}")
     rebuilt = sorted(f for f, t in _built_libraries().items()
                      if libraries.get(f) != t)
     check(not rebuilt, f"wire_stack: kernels built again: {rebuilt}")
     launches = {k.name: sum(c[k.name] for cs in per_leg.values() for c in cs)
                 for k in names}
-    a, b, c, d = (legs[k] for k in "abcd")
+    a, b, c, d, e, f = (legs[k] for k in "abcdef")
+    vs_golden = soak_uploads_vs_golden(work)
     phase("wire_stack", card=smi, seconds=phase_s,
           leg_seconds=walls, legs_passed=sorted(legs),
           prefill_fingerprints=n_fp, kernels_rebuilt=rebuilt,
@@ -2458,8 +2500,44 @@ def drive_wire_stack(work: str, smi: str) -> dict:
           b={"timings": b["timings"], "launches": per_leg["b"][0]},
           c={"timings": c["timings"], "ranks": c["ranks"]},
           d={k: v for k, v in d.items() if k not in ("ok", "failures")},
+          e={k: v for k, v in e.items() if k not in ("ok", "failures")},
+          f={"seconds": f["seconds"], "videos": f["videos"],
+             "videos_per_s": f["videos_per_s"], "boot_s": f["boot_s"],
+             "oplog_max_rows": f["oplog_max_rows"],
+             "oplog_final_rows": f["oplog_final_rows"],
+             "oplog_max_lag_ops": f["oplog_max_lag_ops"],
+             "oplog_samples": f["oplog_samples"],
+             "corpus_videos": f["corpus_videos"], "ranks": f["ranks"]},
+          soak_uploads_k1_vs_golden_bits=vs_golden,
           launches=launches)
     return launches
+
+
+def soak_uploads_vs_golden(work: str) -> dict:
+    """K1's hashes of the originals the soaks of legs (e) and (f) upload,
+    decoded to 90x160 as the service decodes them, against
+    ``golden.phash``: how many frames differ by 0, 1, 2 and more bits.
+    (One K1 launch a clip, outside every launch-count window.)"""
+    import numpy as np
+    import torch
+
+    from tvidz_tpu_torch.decode.y4m import Y4MDecoder
+    from tvidz_tpu_torch.ops import fused
+    from tvidz_tpu_torch.service import soak, soak_multihost
+
+    out = os.path.join(work, "soak_uploads")
+    os.makedirs(out)
+    _, _, originals = soak.make_uploads(out, soak.MESH_VIDEOS)
+    paths = [p for _, p in originals] + sorted({
+        soak_multihost.write_clip(out, seed)
+        for _, seed, copy_of in soak_multihost.upload_plan(soak_multihost.VIDEOS)
+        if copy_of is None})
+    luma = [np.ascontiguousarray(np.concatenate([b.luma for b in Y4MDecoder(
+        ).blocks(p, FRAMES, HEIGHT, WIDTH)])) for p in paths]
+    words = [fused.fingerprint_stream(torch.from_numpy(x).cuda())[1].cpu().numpy()
+             for x in luma]
+    hist = golden_bits_histogram(np.concatenate(luma), np.concatenate(words))
+    return {"clips": len(paths), "frames": sum(len(x) for x in luma), **hist}
 
 
 def drive_bench(smi: str) -> dict:

@@ -5,16 +5,21 @@ auth, and the whole upload -> ObjectCreated -> SQS -> analysis -> verdict
 path through the real HTTP clients — run unchanged against the port's
 MiniAWS, clients, entrypoint and app.
 
-``use_port`` (shared by the other mirrors of the reference's wire tests)
+``use_port`` (shared by the other mirrors of the reference's tests)
 points a reference test module at the port for the length of one test: each
 of its globals taken from the JAX package becomes the port's object of the
-same name, and each JAX-package module its tests import in their bodies
+same name, each JAX-package module its tests import in their bodies
 resolves to the port's, with ``DeviceCorpus`` and ``create_app`` given
-``device="cpu"``. The reference modules themselves are not edited.
+``device="cpu"``, and ``TVIDZ_TORCH_DEVICE=cpu`` puts every other entry
+point (``FingerprintModel``, ``Analyzer``, ``make_mesh``) on the CPU by the
+port's own contract. ``reference_cases``, ``reference_fixtures`` and
+``run_reference`` run several reference modules' tests as the cases of one
+parametrised test. The reference modules themselves are not edited.
 """
 
 import functools
 import importlib
+import inspect
 import sys
 import types
 
@@ -27,14 +32,20 @@ ref = importlib.import_module("tests.test_event_wiring")
 
 # The JAX-package modules the reference's wire tests import in their bodies.
 REFERENCE_MODULES = (
-    "tvidz_tpu.config", "tvidz_tpu.corpus.device_corpus",
+    "tvidz_tpu.cli", "tvidz_tpu.config", "tvidz_tpu.corpus.device_corpus",
     "tvidz_tpu.corpus.pgwire", "tvidz_tpu.corpus.store", "tvidz_tpu.decode",
     "tvidz_tpu.decode.synthetic", "tvidz_tpu.decode.y4m",
-    "tvidz_tpu.pipeline.analyzer", "tvidz_tpu.pipeline.progress",
-    "tvidz_tpu.service.app", "tvidz_tpu.service.aws",
-    "tvidz_tpu.service.entrypoint", "tvidz_tpu.service.fakes",
-    "tvidz_tpu.service.miniaws", "tvidz_tpu.service.minipg",
-    "tvidz_tpu.service.sigv4", "tvidz_tpu.utils.timing",
+    "tvidz_tpu.models.fingerprint", "tvidz_tpu.ops.fused",
+    "tvidz_tpu.ops.golden", "tvidz_tpu.ops.hamming", "tvidz_tpu.ops.phash",
+    "tvidz_tpu.ops.scene", "tvidz_tpu.parallel.mesh",
+    "tvidz_tpu.parallel.mesh_corpus", "tvidz_tpu.parallel.sharded_search",
+    "tvidz_tpu.pipeline.analyzer", "tvidz_tpu.pipeline.checkpoint",
+    "tvidz_tpu.pipeline.dispatcher", "tvidz_tpu.pipeline.prefetch",
+    "tvidz_tpu.pipeline.progress", "tvidz_tpu.service.app",
+    "tvidz_tpu.service.aws", "tvidz_tpu.service.entrypoint",
+    "tvidz_tpu.service.fakes", "tvidz_tpu.service.miniaws",
+    "tvidz_tpu.service.minipg", "tvidz_tpu.service.sigv4",
+    "tvidz_tpu.service.wsgi", "tvidz_tpu.utils.timing",
 )
 PINNED = {"DeviceCorpus": functools.partial(DeviceCorpus, device="cpu"),
           "create_app": functools.partial(create_app, device="cpu")}
@@ -49,11 +60,28 @@ def port_module(name: str):
     if not PINNED.keys() & vars(port).keys():
         return port
     if name not in _views:
-        view = types.ModuleType(port.__name__)
+        view = _PinnedView(port.__name__)
         view.__dict__.update(vars(port))
         view.__dict__.update({k: v for k, v in PINNED.items() if hasattr(port, k)})
+        view.__dict__["_port"] = port
         _views[name] = view
     return _views[name]
+
+
+class _PinnedView(types.ModuleType):
+    """A port module with ``PINNED`` names swapped in. Any other attribute
+    a test sets (``dcm._AL_T0 = 32``, a monkeypatch) reaches the module
+    itself too, so that the port's own code sees it."""
+
+    def __setattr__(self, key, value):
+        if key not in PINNED:
+            setattr(self._port, key, value)
+        super().__setattr__(key, value)
+
+    def __delattr__(self, key):
+        if key not in PINNED:
+            delattr(self._port, key)
+        super().__delattr__(key)
 
 
 def _port_of(value):
@@ -71,6 +99,7 @@ def _port_of(value):
 
 def use_port(monkeypatch, module) -> None:
     """Point the reference test ``module`` at the port (see the note above)."""
+    monkeypatch.setenv("TVIDZ_TORCH_DEVICE", "cpu")
     parents = {n: importlib.import_module(n.rpartition(".")[0])
                for n in REFERENCE_MODULES}
     for name, parent in parents.items():
@@ -81,6 +110,51 @@ def use_port(monkeypatch, module) -> None:
         port = _port_of(value)
         if port is not None:
             monkeypatch.setattr(module, key, port)
+
+
+def _short(module) -> str:
+    return module.__name__.rpartition(".")[2]
+
+
+def reference_cases(module, without=()):
+    """One ``pytest.param(module, test)`` per test function of the reference
+    ``module``, in file order, save those named in ``without``."""
+    tests = [(n, f) for n, f in vars(module).items()
+             if n.startswith("test_") and inspect.isfunction(f)]
+    missing = set(without) - {n for n, _ in tests}
+    assert not missing, f"{module.__name__} has no {sorted(missing)}"
+    return [pytest.param(module, f, id=f"{_short(module)}.{n}")
+            for n, f in tests if n not in without]
+
+
+def reference_fixtures(*modules) -> dict:
+    """The fixtures the reference ``modules`` define, each renamed
+    ``<module>__<name>`` (two modules may both define ``env``); a mirror
+    puts them in its globals for ``run_reference`` to find."""
+    out = {}
+    for module in modules:
+        for name, value in vars(module).items():
+            marker = getattr(value, "_fixture_function_marker", None)
+            if marker is not None:
+                qualified = f"{_short(module)}__{name}"
+                out[qualified] = pytest.fixture(
+                    name=qualified, scope=marker.scope)(
+                        value._get_wrapped_function())
+    return out
+
+
+def run_reference(request, monkeypatch, module, test) -> None:
+    """Run the reference ``test`` of ``module`` on the port: ``use_port``
+    first, then its fixtures (the module's own ones through
+    ``reference_fixtures``' names), so that they too build the port's
+    objects."""
+    use_port(monkeypatch, module)
+    own = {n for n, v in vars(module).items()
+           if getattr(v, "_fixture_function_marker", None) is not None}
+    kwargs = {name: request.getfixturevalue(
+        f"{_short(module)}__{name}" if name in own else name)
+        for name in inspect.signature(test).parameters}
+    test(**kwargs)
 
 
 @pytest.fixture(autouse=True)

@@ -50,6 +50,24 @@ def test_family_matches_jax_and_golden(rng, name, h, w):
     assert _bits(got, want).max() <= tol
 
 
+@pytest.mark.parametrize("hash_size", [8, 16])
+def test_phash_bits_batched_matches_jax(rng, hash_size):
+    """The reference's bit-level entry point: the same bits as the JAX
+    package's within 2 a frame, and its sizes checked up front."""
+    from tvidz_tpu.ops import phash as jax_phash
+    from tvidz_tpu_torch.ops import phash
+
+    frames = _frames(rng)
+    got = phash.phash_bits_batched(torch.from_numpy(frames), hash_size=hash_size)
+    want = np.asarray(jax_phash.phash_bits_batched(jnp.asarray(frames),
+                                                   hash_size=hash_size))
+    assert got.shape == want.shape == (frames.shape[0], hash_size ** 2)
+    assert np.abs(got.numpy() - want).sum(axis=1).max() <= 2
+    for kw in ({"hash_size": 12}, {"dct_size": 8, "hash_size": 16}):
+        with pytest.raises(ValueError):
+            phash.phash_bits_batched(torch.from_numpy(frames), **kw)
+
+
 def test_golden_models_are_the_references():
     rng = np.random.default_rng(3)
     frames = _frames(rng, n=3)

@@ -17,11 +17,18 @@ import torch
 
 from tests.test_torch_multihost_served import run_driver
 from tvidz_tpu_torch import backend
-from tvidz_tpu_torch.service import integration, integration_multihost, soak
+from tvidz_tpu_torch.service import (
+    integration,
+    integration_multihost,
+    soak,
+    soak_multihost,
+)
 
 
-@pytest.mark.parametrize("driver", [integration, soak, integration_multihost],
-                         ids=["integration", "soak", "integration_multihost"])
+@pytest.mark.parametrize("driver", [integration, soak, integration_multihost,
+                                    soak_multihost],
+                         ids=["integration", "soak", "integration_multihost",
+                              "soak_multihost"])
 def test_drivers_run_on_the_card_unless_asked(monkeypatch, driver):
     """Each driver (and the service it starts) runs on the card by default:
     without one it raises before it starts anything."""

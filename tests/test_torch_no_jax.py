@@ -196,6 +196,18 @@ def test_multihost_modules_import_without_jax(tmp_path):
     assert refused == []
 
 
+def test_soak_multihost_imports_without_jax(tmp_path):
+    """The multi-host soak driver imports with jax and the JAX package
+    refused, and neither is in ``sys.modules`` afterwards."""
+    (tmp_path / "soak_imports.py").write_text(
+        "import tvidz_tpu_torch.service.soak_multihost\n")
+    out, refused = _run_cli(tmp_path, module="soak_imports",
+                            env_extra={"PYTHONPATH": str(tmp_path)})
+    assert json.loads(out.strip().splitlines()[-1]) == {
+        "code": 0, "jax": [], "tvidz_tpu": []}
+    assert refused == []
+
+
 def test_wire_modules_import_without_jax(tmp_path):
     """MiniAWS, MiniPG and the two full-stack drivers import with jax and
     the JAX package refused, and MiniPG serves the port's Store there."""

@@ -1,0 +1,28 @@
+"""The reference's own regression tests of admission, corpus churn,
+resume and catch-up, fingerprint evidence, the r3 verdict fixes, long-video
+concurrency and horizontal scaling, run against the port on the CPU: each
+test function of the eight reference modules below is one case of
+``test_reference``, run unchanged through ``use_port``
+(tests/test_torch_event_wiring.py), 21 cases in all.
+"""
+
+import importlib
+
+import pytest
+
+from tests.test_torch_event_wiring import (
+    reference_cases,
+    reference_fixtures,
+    run_reference,
+)
+
+MODULES = [importlib.import_module(f"tests.test_{m}") for m in (
+    "admission", "churn", "properties_churn", "resume_catchup", "fp_evidence",
+    "verdict_r3", "longvideo_concurrency", "horizontal_scaling")]
+globals().update(reference_fixtures(*MODULES))
+
+
+@pytest.mark.parametrize(
+    "module, test", [c for m in MODULES for c in reference_cases(m)])
+def test_reference(request, monkeypatch, module, test):
+    run_reference(request, monkeypatch, module, test)

@@ -172,8 +172,11 @@ def _check_scan_inputs(q, corpus):
     if q.ndim != 2 or corpus.ndim != 2 or q.shape[1] != corpus.shape[1]:
         raise ValueError(f"incompatible shapes {tuple(q.shape)} and "
                          f"{tuple(corpus.shape)}")
-    if q.shape[0] == 0 or corpus.shape[0] == 0:
-        raise ValueError("empty query or corpus")
+    # The reference's messages, corpus first (tvidz_tpu/ops/hamming.py:780).
+    if corpus.shape[0] == 0:
+        raise ValueError("empty corpus")
+    if q.shape[0] == 0:
+        raise ValueError("empty query")
     if q.device != corpus.device:
         raise ValueError(f"queries on {q.device}, corpus on {corpus.device}")
     if not q.is_cuda and q.device.type != "cpu":

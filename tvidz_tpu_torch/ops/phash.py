@@ -90,6 +90,20 @@ def low_coefficients(luma: torch.Tensor, left: torch.Tensor,
     return low.reshape(x.shape[0], -1)
 
 
+def phash_bits_batched(luma: torch.Tensor, dct_size: int = 32,
+                       hash_size: int = 8) -> torch.Tensor:
+    """(T, H, W) luma -> (T, hash_size²) {0,1} int32 bits, on ``luma``'s
+    device (tvidz_tpu/ops/phash.py:34). hash_size² must be a multiple of
+    32 and hash_size at most dct_size; anything else is rejected up front."""
+    if (hash_size * hash_size) % 32:
+        raise ValueError(f"hash_size={hash_size} gives {hash_size ** 2} "
+                         "bits, not a multiple of 32; supported sizes: 8 "
+                         "(64-bit), 16 (256-bit)")
+    _, h, w = luma.shape
+    left, right = hash_operators(h, w, luma.device, dct_size, hash_size)
+    return median_threshold_bits(low_coefficients(luma, left, right), hash_size)
+
+
 def phash_batched(luma: torch.Tensor, left: torch.Tensor,
                   right: torch.Tensor) -> torch.Tensor:
     """(T, H, W) luma -> (T, words) int32 packed fingerprints."""

@@ -26,6 +26,9 @@ from tvidz_tpu_torch import backend
 
 DATA_AXIS = "data"
 CORPUS_AXIS = "corpus"
+# Cells of a CPU mesh made without ``devices`` or ``n_devices``: the
+# reference tests' virtual CPU device count (tests/conftest.py).
+CPU_CELLS = 8
 
 
 def mesh_shape_for(n_devices: int, corpus_fraction: int = 4) -> Tuple[int, int]:
@@ -69,12 +72,20 @@ def make_mesh(
     corpus_size: Optional[int] = None,
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """A mesh over the first ``n_devices`` of ``devices`` (default: every
-    visible CUDA device; raises without one, as ``backend.resolve_device``
-    does), shaped ``(data_size, corpus_size)`` or ``mesh_shape_for(n)``."""
+    """A mesh over the first ``n_devices`` of ``devices``, shaped
+    ``(data_size, corpus_size)`` or ``mesh_shape_for(n)``.
+
+    Without ``devices`` the device is ``backend.resolve_device()``'s
+    (``TVIDZ_TORCH_DEVICE``, else ``cuda``; raises without a card unless
+    the CPU was asked for): every visible card, or on the CPU ``[cpu] * n``
+    with ``n = n_devices`` or 8, the reference's virtual CPU device count."""
     if devices is None:
-        backend.resolve_device("cuda")
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        device = backend.resolve_device()
+        if device.type == "cpu":
+            devices = [device] * (n_devices or CPU_CELLS)
+        else:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
     devices = [backend.resolve_device(d) for d in devices]
     n = n_devices or len(devices)
     if data_size and corpus_size:

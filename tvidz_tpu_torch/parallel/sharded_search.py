@@ -20,7 +20,9 @@ and ``step.multichip_analysis_step`` use every cell.
 On CUDA tensors ``sharded_frame_min(_rows)`` and ``sharded_nearest`` launch
 K4 per shard, ``sharded_fragment_search(_batch)`` K3 per shard (or tile);
 on CPU tensors they run the kernels' plain versions. Timestamp matching and
-``sharded_hamming_topk`` are plain torch, as they are XLA in the reference.
+``sharded_hamming_topk`` are plain torch, as they are XLA in the reference,
+but for the top-1 (the multi-host verdict's nearest row), which is K4
+``query_nearest``'s function and runs on it per shard.
 """
 
 from __future__ import annotations
@@ -171,22 +173,45 @@ def sharded_hamming_topk(
     dists, idxs = [], []
     for s in range(mesh.shape[CORPUS_AXIS]):
         qq, cc = q.block(0, s), c.block(0, s)
-        step = max(1, _TOPK_PAIRS // max(qq.shape[0], 1))
-        cand_d, cand_i = [], []
-        for r in range(0, local_n, step):
-            d = hamming_matrix(qq, cc[r:r + step])
-            if ok is not None:
-                d = torch.where(ok.block(0, s)[r:r + step][None, :], d,
-                                _TOPK_INVALID)
-            i = torch.arange(s * local_n + r, s * local_n + r + d.shape[1],
-                             dtype=torch.int32, device=d.device)
-            top = _smallest(d, i.expand_as(d), k_local)
-            cand_d.append(top[0])
-            cand_i.append(top[1])
-        d, i = _smallest(torch.cat(cand_d, 1), torch.cat(cand_i, 1), k_local)
+        mask = None if ok is None else ok.block(0, s)
+        if k_local == 1 and qq.shape[0]:
+            d, i = _shard_nearest(qq, cc, mask, s * local_n)
+        else:
+            d, i = _shard_topk(qq, cc, mask, s * local_n, k_local)
         dists.append(d)
         idxs.append(i)
     return _smallest(_gather(dists, mesh, 1), _gather(idxs, mesh, 1), k)
+
+
+def _shard_topk(qq, cc, mask, base: int, k: int):
+    """One shard's ``k`` nearest rows (global indices from ``base``) by
+    blocks of the distance matrix, masked rows at ``_TOPK_INVALID``."""
+    step = max(1, _TOPK_PAIRS // max(qq.shape[0], 1))
+    cand_d, cand_i = [], []
+    for r in range(0, cc.shape[0], step):
+        d = hamming_matrix(qq, cc[r:r + step])
+        if mask is not None:
+            d = torch.where(mask[r:r + step][None, :], d, _TOPK_INVALID)
+        i = torch.arange(base + r, base + r + d.shape[1], dtype=torch.int32,
+                         device=d.device)
+        top = _smallest(d, i.expand_as(d), k)
+        cand_d.append(top[0])
+        cand_i.append(top[1])
+    return _smallest(torch.cat(cand_d, 1), torch.cat(cand_i, 1), k)
+
+
+def _shard_nearest(qq, cc, mask, base: int):
+    """One shard's nearest row per query, as ``_shard_topk(..., 1)``: K4
+    ``query_nearest`` gives the least distance and the first row at it.
+    Where that row is valid it is also the first valid row at the least
+    valid distance; queries whose row is masked take ``_shard_topk``."""
+    d, arg = corpus_query_nearest(qq, cc)
+    d, i = d[:, None], (arg + base)[:, None]
+    if mask is not None:
+        redo = (~mask[arg.long()]).nonzero()[:, 0]
+        if redo.numel():
+            d[redo], i[redo] = _shard_topk(qq[redo], cc, mask, base, 1)
+    return d, i
 
 
 def sharded_frame_min(

@@ -82,6 +82,81 @@ def http(method: str, url: str, body=None, timeout: float = 10.0):
         return None, None
 
 
+def spawn_ranks(ports, coord: int, workdir: str, db_url: str, device: str,
+                cells: int, env_extra: dict, log_suffix: str = "",
+                one_card_per_rank: bool = False):
+    """Start one entrypoint process per port as the ranks of one group
+    (``TVIDZ_COORDINATOR`` on ``coord``), each ``--fake-aws --mesh`` over
+    ``cells`` cells of its device, on the shared store ``db_url``, with
+    the fake S3 root, thumbnails and temporary files in ``workdir`` and
+    ``env_extra`` on top. Each rank's output goes to
+    ``host<rank><log_suffix>.log`` in ``workdir`` (an undrained pipe
+    blocks the server). Ranks sharing one card run over gloo (NCCL
+    refuses two ranks on one device);
+    ``one_card_per_rank`` gives rank i card i alone and NCCL; CPU ranks
+    take one thread each (they share this machine's cores). Returns
+    (processes, open log files)."""
+    procs, files = [], []
+    for pid, port in enumerate(ports):
+        env = {
+            **os.environ,
+            "PYTHONPATH": os.pathsep.join(
+                [ROOT] + [p for p in os.environ.get("PYTHONPATH", "")
+                          .split(os.pathsep) if p]),
+            "TVIDZ_COORDINATOR": f"127.0.0.1:{coord}",
+            "TVIDZ_NUM_PROCESSES": str(len(ports)),
+            "TVIDZ_PROCESS_ID": str(pid),
+            "TVIDZ_FAKE_S3_ROOT": os.path.join(workdir, "s3"),
+            "TVIDZ_TMP_DIR": os.path.join(workdir, "tmp"),
+            "TVIDZ_THUMBNAIL_DIR": os.path.join(workdir, "thumbnails"),
+            "TMPDIR": workdir,
+            **env_extra,
+        }
+        if one_card_per_rank:
+            env["CUDA_VISIBLE_DEVICES"] = str(pid)
+        elif device == "cuda":
+            env.setdefault("TVIDZ_DIST_BACKEND", "gloo")
+        else:
+            env.setdefault("OMP_NUM_THREADS", "1")
+        os.makedirs(env["TVIDZ_TMP_DIR"], exist_ok=True)
+        lf = open(os.path.join(workdir, f"host{pid}{log_suffix}.log"), "w")
+        files.append(lf)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tvidz_tpu_torch.service.entrypoint",
+             "--fake-aws", "--mesh", "--db", db_url, "--device", device,
+             "--cells-per-device", str(cells),
+             "--host", "127.0.0.1", "--port", str(port)],
+            cwd=ROOT, env=env, stdout=lf, stderr=subprocess.STDOUT))
+    return procs, files
+
+
+def stop_ranks(procs) -> None:
+    for p in procs:
+        p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def wait_ranks_healthy(bases, procs, timeout: float = 420.0) -> bool:
+    """Whether every rank's /healthz reads ``ok`` before ``timeout``; False
+    at once when a rank exits."""
+    deadline = time.time() + timeout
+    ready = [False] * len(bases)
+    while time.time() < deadline and not all(ready):
+        if any(p.poll() is not None for p in procs):
+            break
+        for i, base in enumerate(bases):
+            if not ready[i]:
+                _, body = http("GET", f"{base}/healthz", timeout=2)
+                ready[i] = bool(body) and body.get("status") == "ok"
+        time.sleep(0.25)
+    return all(ready)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
@@ -144,17 +219,8 @@ def main(argv=None) -> int:
             failures.append(name)
 
     def spawn_cluster(coord):
-        for pid, port in enumerate(ports):
-            env = {
-                **os.environ,
-                "PYTHONPATH": os.pathsep.join(
-                    [ROOT] + [p for p in os.environ.get("PYTHONPATH", "")
-                              .split(os.pathsep) if p]),
-                "TVIDZ_COORDINATOR": f"127.0.0.1:{coord}",
-                "TVIDZ_NUM_PROCESSES": "2",
-                "TVIDZ_PROCESS_ID": str(pid),
-                "TVIDZ_FAKE_S3_ROOT": fake_root,
-                "TVIDZ_TMP_DIR": os.path.join(workdir, "tmp"),
+        procs, files = spawn_ranks(
+            ports, coord, workdir, db_url, args.device, cells, {
                 "TVIDZ_LOG_LEVEL": "INFO",
                 # Small capacities: fast placement, and growth past them.
                 "TVIDZ_MH_TS_CAPACITY": "64",
@@ -168,51 +234,21 @@ def main(argv=None) -> int:
                 "TVIDZ_MH_PRUNE_INTERVAL_S": "2",
                 "TVIDZ_MH_WM_INTERVAL_S": "1",
                 "TVIDZ_MH_LAG_ALARM_OPS": "5",
-            }
-            if args.one_card_per_rank:
-                env["CUDA_VISIBLE_DEVICES"] = str(pid)
-            elif args.device == "cuda":
-                env.setdefault("TVIDZ_DIST_BACKEND", "gloo")
-            else:
-                # The CPU ranks share this machine's cores.
-                env.setdefault("OMP_NUM_THREADS", "1")
-            # Server logs go to FILES (an undrained pipe blocks the server).
-            lf = open(os.path.join(workdir, f"host{pid}.gen{gen[0]}.log"), "w")
-            logs.append(lf)
-            servers.append(subprocess.Popen(
-                [sys.executable, "-m", "tvidz_tpu_torch.service.entrypoint",
-                 "--fake-aws", "--mesh", "--db", db_url, "--device", args.device,
-                 "--cells-per-device", str(cells),
-                 "--host", "127.0.0.1", "--port", str(port)],
-                cwd=ROOT, env=env, stdout=lf, stderr=subprocess.STDOUT))
+            }, f".gen{gen[0]}", args.one_card_per_rank)
+        servers.extend(procs)
+        logs.extend(files)
         gen[0] += 1
 
     def stop_cluster():
-        for p in servers:
-            p.terminate()
-        for p in servers:
-            try:
-                p.wait(timeout=20)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
+        stop_ranks(servers)
         servers.clear()
 
     def wait_healthy(tag=""):
         t0 = time.perf_counter()
-        deadline = time.time() + 420
-        ready = [False, False]
-        while time.time() < deadline and not all(ready):
-            if any(p.poll() is not None for p in servers):
-                break
-            for i, base in enumerate(bases):
-                if not ready[i]:
-                    _, body = http("GET", f"{base}/healthz", timeout=2)
-                    ready[i] = bool(body) and body.get("status") == "ok"
-            time.sleep(0.25)
+        ready = wait_ranks_healthy(bases, servers)
         timings[f"boot_s{tag}"] = time.perf_counter() - t0
-        check(f"both hosts healthy{tag}", all(ready))
-        if not all(ready):
+        check(f"both hosts healthy{tag}", ready)
+        if not ready:
             raise TimeoutError("hosts never became healthy")
 
     def metrics(i):

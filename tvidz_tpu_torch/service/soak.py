@@ -14,7 +14,12 @@ checks that:
 
 and reports the sustained rate.
 
-    python -m tvidz_tpu_torch.service.soak [--device cuda|cpu] [--videos N]
+    python -m tvidz_tpu_torch.service.soak [--device cuda|cpu] [--videos N] [--mesh]
+
+``--mesh`` soaks the sharded-corpus service: the entrypoint's ``--mesh
+--cells-per-device 8`` (``[cuda:0] * 8`` on the card, ``[cpu] * 8`` on the
+CPU), 20 uploads unless ``--videos`` says otherwise, and the server log
+must say the corpus was sharded over the 8 cells.
 
 The fake S3 root, the uploads and the server log live in a directory of the
 run's own. On the card the service process's device memory
@@ -48,6 +53,15 @@ MAX_RESULTS = 24
 FRAMES = 200
 IN_FLIGHT = 4
 PROBES = 6
+VIDEOS, MESH_VIDEOS = 40, 20
+MESH_CELLS = 8
+# On the CPU every tensor of an analysis is host memory. glibc raises its
+# mmap threshold to the largest block freed so far, so later blocks of that
+# size stay in the heap of whichever thread's arena took them, and RSS
+# swings by tens of MB from upload to upload with nothing leaked. A fixed
+# threshold returns every block of 128 KiB or more to the system when it
+# is freed: RSS then follows what is live, which the leak check reads.
+HOST_TENSOR_MALLOC = {"MALLOC_MMAP_THRESHOLD_": str(128 * 1024)}
 
 
 def rss_mb(pid: int) -> float:
@@ -82,24 +96,54 @@ def device_memory_mib(pid: int, before: float = None) -> dict:
                                           else used - before)}
 
 
+def make_uploads(uploads_dir: str, n_videos: int):
+    """The soak's uploads, written into ``uploads_dir``: (names and paths
+    in upload order, {copy: the original it must name}, originals). Every
+    fifth is a byte copy of an earlier original; the originals' cut windows
+    are disjoint, so no two share a cut pair and exact-equality dedup
+    cannot rightly cross-fire."""
+    import numpy as np
+
+    from tvidz_tpu_torch.decode.synthetic import synthetic_video
+    from tvidz_tpu_torch.decode.y4m import write_y4m
+
+    names, expect_dup_of, originals = [], {}, []
+    rng = np.random.default_rng(9)
+    for i in range(n_videos):
+        name = f"soak-{i:03d}.y4m"
+        path = os.path.join(uploads_dir, name)
+        if i % 5 == 4 and originals:
+            src_name, src_path = originals[int(rng.integers(0, len(originals)))]
+            shutil.copy(src_path, path)
+            expect_dup_of[name] = src_name
+        else:
+            first = 10 + 4 * len(originals)
+            luma, _ = synthetic_video(
+                num_frames=FRAMES, height=240, width=320,
+                cut_frames=(first, first + 1, first + 2), seed=1000 + i)
+            write_y4m(path, luma, fps=25.0)
+            originals.append((name, path))
+        names.append((name, path))
+    return names, expect_dup_of, originals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="cuda (default, or $TVIDZ_TORCH_DEVICE) or cpu")
-    ap.add_argument("--videos", type=int, default=40,
-                    help="uploads in the main phase")
+    ap.add_argument("--videos", type=int, default=None,
+                    help=f"uploads in the main phase ({VIDEOS}; "
+                         f"{MESH_VIDEOS} with --mesh)")
+    ap.add_argument("--mesh", action="store_true",
+                    help=f"the corpus sharded over {MESH_CELLS} cells of the device")
     args = ap.parse_args(argv)
     from tvidz_tpu_torch import backend
 
     # Raises without a card unless the CPU was asked for.
     device = backend.resolve_device(args.device).type
-    n_videos = args.videos
+    n_videos = args.videos or (MESH_VIDEOS if args.mesh else VIDEOS)
 
-    import numpy as np
     import requests
-
-    from tvidz_tpu_torch.decode.synthetic import synthetic_video
-    from tvidz_tpu_torch.decode.y4m import write_y4m
 
     # A fake S3 root of the run's own: a shared one would cross-ingest with
     # (and at cleanup delete) a concurrent run's uploads.
@@ -113,13 +157,18 @@ def main(argv=None) -> int:
     card_before = (device_memory_mib(-1)["card_used_mib"]
                    if device == "cuda" else None)
     t_boot = time.perf_counter()
+    mesh_args = (["--mesh", "--cells-per-device", str(MESH_CELLS)]
+                 if args.mesh else [])
     server, log_path = spawn_service(
-        ["--fake-aws", "--db", "sqlite:///:memory:", "--port", str(port)],
+        ["--fake-aws", *mesh_args, "--db", "sqlite:///:memory:",
+         "--port", str(port)],
         workdir, device,
         {"TVIDZ_MAX_ANALYSIS_RESULTS": str(MAX_RESULTS),
-         "TVIDZ_LOG_LEVEL": "WARNING"})
+         # The mesh check reads the entrypoint's INFO line.
+         "TVIDZ_LOG_LEVEL": "INFO" if args.mesh else "WARNING",
+         **(HOST_TENSOR_MALLOC if device == "cpu" else {})})
     failures: list = []
-    summary = {"device": device, "videos": n_videos,
+    summary = {"device": device, "videos": n_videos, "mesh": args.mesh,
                "in_flight": IN_FLIGHT, "frames_per_video": FRAMES}
 
     def check(name, cond, detail=""):
@@ -135,29 +184,14 @@ def main(argv=None) -> int:
                                                                 card_before)
 
     try:
-        # The uploads, built up front while the service boots: every fifth
-        # a byte copy of an earlier original, which it must name.
-        names, expect_dup_of, originals = [], {}, []
-        rng = np.random.default_rng(9)
-        for i in range(n_videos):
-            name = f"soak-{i:03d}.y4m"
-            path = os.path.join(uploads_dir, name)
-            if i % 5 == 4 and originals:
-                src_name, src_path = originals[int(rng.integers(0, len(originals)))]
-                shutil.copy(src_path, path)
-                expect_dup_of[name] = src_name
-            else:
-                # Disjoint cut windows: no two originals share a cut pair,
-                # so exact-equality dedup cannot rightly cross-fire.
-                first = 10 + 4 * len(originals)
-                luma, _ = synthetic_video(
-                    num_frames=FRAMES, height=240, width=320,
-                    cut_frames=(first, first + 1, first + 2), seed=1000 + i)
-                write_y4m(path, luma, fps=25.0)
-                originals.append((name, path))
-            names.append((name, path))
+        # The uploads, built while the service boots.
+        names, expect_dup_of, originals = make_uploads(uploads_dir, n_videos)
         wait_healthy(base, server)
         summary["boot_s"] = time.perf_counter() - t_boot
+        if args.mesh:
+            check(f"corpus sharded over the {MESH_CELLS} cells",
+                  f"corpus sharded over {MESH_CELLS} devices"
+                  in log_tail(log_path, 400))
         memory("warm")
 
         sem = threading.Semaphore(IN_FLIGHT)
