@@ -48,8 +48,14 @@ fingerprints through K3 and K4), then:
   ``[cuda:0] * 8``) and the multi-host soak (12 uploads alternating two
   ranks on cuda:0, the op log bounded under ingest), and K1's hashes of
   the soaks' uploads against ``golden.phash``;
+- ``scene_180x320``: the CLI's ingest and analyze under
+  ``TVIDZ_SCENE_HEIGHT=180 TVIDZ_SCENE_WIDTH=320``, every block through
+  K1's second form (one launch a block), the renamed copy naming its
+  original, and the analyze frames/s and device busy share there;
 
-and time it. Launch counts are zeroed before and read after each of those
+and time it (K1's second form also on 16,384-frame 180x320 and 2,048-frame
+720x1280 streams, each row's hashes counted against the plain version and
+golden). Launch counts are zeroed before and read after each of those
 paths.
 
     python3 chip_smoke.py
@@ -59,8 +65,9 @@ paths.
 the repo (``git archive <commit> | tar -x -C OLD_ROOT``; in a directory
 ``.gitignore`` lists): four fresh processes, old, new, new, old, each
 timing K1, K3 and K4 at the race shapes (torch.profiler device time and
-CUDA events) and one analyze of a 1024-frame upload; K3's and K4's outputs
-held equal across the trees, K1's within its tolerances.
+CUDA events; K1 also at K1_TIMED_GEOMETRIES) and one analyze of a
+1024-frame upload; K3's and K4's outputs held equal across the trees, K1's
+within its tolerances.
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and on any
 failed phase. Each phase prints one line; the line before the last is
@@ -99,7 +106,19 @@ K1_VALUE_FRAMES = 512 * 256                 # the bench's single-dispatch pass
 # the first form.
 ODD_GEOMETRIES = ((91, 163), (33, 47), (720, 1280), (8, 8), (180, 320),
                   (90, 162), (90, 160))
-K1_TIMED_GEOMETRIES = ((180, 320), (720, 1280))
+# K1's second form timed (label, frames, H, W): a lone block at T=128, and a
+# whole stream long enough that the bytes and the FMA issue, not the launch,
+# set the time (0.94 GB and 1.9 GB of luma).
+K1_TIMED_GEOMETRIES = (("t128_180x320", 128, 180, 320),
+                       ("t128_720x1280", 128, 720, 1280),
+                       ("s16384_180x320", 16_384, 180, 320),
+                       ("s2048_720x1280", 2048, 720, 1280))
+# Frames of a timed row held against golden.phash (host numpy, ~5-10 ms a
+# frame): all of a block, the first 1024 of a stream.
+K1_GOLDEN_FRAMES = 1024
+# The main path at another scene geometry (TVIDZ_SCENE_HEIGHT/WIDTH): every
+# block through K1's second form.
+SCENE_GEOMETRY = (180, 320)
 WIDE_WORDS = (1, 3, 8)                      # K2 and K4 at other word widths
 # Past one pass of the kernels' shared memory (the word-chunked walks):
 # W = 32 (TVIDZ_HASH_SIZE=32) and 128 (TVIDZ_DCT_SIZE=64 TVIDZ_HASH_SIZE=64),
@@ -1041,10 +1060,12 @@ def still_runs(corpus, qs):
 # random rows, and at M=1024 (a whole video, ``search_fingerprints``).
 RACE_K4 = (("m128_2^20", 128, SCAN_N), ("m128_2^24", 128, 1 << 24),
            ("m1024_2^20", 1024, SCAN_N))
-# K1 at the main path's block and at the bench's single-dispatch pass,
+# K1 (label, frames, H, W) at the main path's block and at the bench's
+# single-dispatch pass, then K1's second form at K1_TIMED_GEOMETRIES, each
 # through ``fused.fingerprint_block`` (which both trees have; each takes any
-# T), from a mid-stream carry.
-RACE_K1 = (("t128", FRAMES), ("t2^17", K1_VALUE_FRAMES))
+# T and geometry), from a mid-stream carry.
+RACE_K1 = (("t128", FRAMES, HEIGHT, WIDTH), ("t2^17", K1_VALUE_FRAMES, HEIGHT, WIDTH),
+           *K1_TIMED_GEOMETRIES)
 # K3 at the three parity shapes and on the bucket of identical rows.
 RACE_K3 = (("a", FRAG_A), ("b", FRAG_B), ("c", FRAG_C), ("a_dense", FRAG_A))
 
@@ -1105,15 +1126,15 @@ def measure_arm(root: str, dump: str) -> dict:
                 "digest": digest(outs)}
 
     rows, k1_out = {}, {}
-    left, right = phash.hash_operators(HEIGHT, WIDTH, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 9)
-    for label, frames in RACE_K1:
-        x = torch.randint(0, 256, (frames, HEIGHT, WIDTH), dtype=torch.uint8,
+    for label, frames, h, w in RACE_K1:
+        left, right = phash.hash_operators(h, w, dev)
+        x = torch.randint(0, 256, (frames, h, w), dtype=torch.uint8,
                           device=dev, generator=gen)
         # A carry from the block before: the call continues a stream.
         _, _, carry = fused.fingerprint_block(x[:FRAMES], fused.initial_fingerprint_carry(
-            HEIGHT, WIDTH, dev), left, right)
+            h, w, dev), left, right)
         sc, fp, c = fused.fingerprint_block(x, carry, left, right)
         fn = lambda: fused.fingerprint_block(x, carry, left, right)[:2]  # noqa: E731
         k1_out.update({f"{label}_scores": sc, f"{label}_fps": fp,
@@ -1152,7 +1173,7 @@ def k1_across(old: dict, new: dict) -> dict:
     import numpy as np
 
     out = {}
-    for label, _ in RACE_K1:
+    for label, *_ in RACE_K1:
         err = float(np.abs(old[f"{label}_scores"] - new[f"{label}_scores"]).max())
         bits = popcount_rows(old[f"{label}_fps"].view(np.uint32)
                              ^ new[f"{label}_fps"].view(np.uint32))
@@ -1666,6 +1687,83 @@ def drive_family(work: str, env: dict, words: int, tag: str,
         fresh_duplicates=fresh["duplicates"], search_top_alignment=top,
         cli_s=cli_s, fragment_top=frag["matches"][0], search_fragment_s=fragment_s,
         video_top=best, search_video_s=video_s)
+
+
+def drive_scene_geometry(work: str, smi: str) -> dict:
+    """The main path at TVIDZ_SCENE_HEIGHT/WIDTH = SCENE_GEOMETRY, where
+    every block goes through K1's second form: the CLI's ``ingest`` of two
+    originals, ``analyze`` of a renamed copy (must name its original) and of
+    a fresh video (must name none), on 180x320 Y4M uploads against a store
+    prefilled as ``prefill_store`` does, early exit off; K1 launched once a
+    block. Then ``time_analyze`` at that geometry (analyze frames/s, device
+    busy share). Launch counts zeroed before the CLI calls, read after."""
+    from tvidz_tpu_torch import backend, cli
+    from tvidz_tpu_torch.config import Config
+    from tvidz_tpu_torch.decode import write_synthetic_y4m
+    from tvidz_tpu_torch.models.fingerprint import FingerprintModel
+    from tvidz_tpu_torch.ops import fused, hamming
+
+    h, w = SCENE_GEOMETRY
+    root = os.path.join(work, f"scene_{h}x{w}")
+    lengths = {}
+
+    def video(sub, name, seed, n, cuts):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        path = os.path.join(root, sub, name)
+        lengths[name] = n
+        return path, write_synthetic_y4m(path, num_frames=n, height=h, width=w,
+                                         cut_frames=cuts, seed=seed)[1]
+
+    # Early exit off: the renamed copy's every block is fingerprinted too.
+    env = {"TVIDZ_SCENE_HEIGHT": str(h), "TVIDZ_SCENE_WIDTH": str(w),
+           "TVIDZ_EARLY_EXIT": "0"}
+    os.environ.update(env)
+    try:
+        cfg = Config()
+        model = FingerprintModel(cfg, device="cuda")
+        form = fused.k1_form(cfg.pipeline.scene_height, cfg.pipeline.scene_width)
+        check((cfg.pipeline.scene_height, cfg.pipeline.scene_width) == (h, w)
+              and model.k1 and form == 1,
+              f"scene {h}x{w}: config {cfg.pipeline.scene_height}x"
+              f"{cfg.pipeline.scene_width}, K1 {model.k1}, form {form}")
+        kappa, _ = video("orig", "kappa.y4m", 31, 300, (60, 150, 240))
+        video("orig", "lambda.y4m", 32, 260, (50, 170))
+        renamed = os.path.join(root, "copy", "renamed.y4m")
+        os.makedirs(os.path.dirname(renamed))
+        shutil.copy(kappa, renamed)
+        lengths["renamed.y4m"] = lengths["kappa.y4m"]
+        mu, mu_cuts = video("fresh", "mu.y4m", 33, 280, (70, 200))
+        db = os.path.join(root, "corpus.db")
+        n_fp = prefill_store(db)
+        url = f"sqlite:///{db}"
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(cli, ["ingest", os.path.join(root, "orig"), "--db", url])
+        check(rc == 0 and out[-1]["ingested"] == 2
+              and out[-1]["corpus_fingerprints"] == n_fp + 560,
+              f"scene {h}x{w} ingest: {out}")
+        rc, (res,) = run_cli(cli, ["analyze", renamed, "--db", url, "--compact"])
+        check(rc == 0 and res["duplicates"] == ["kappa.y4m"],
+              f"scene {h}x{w} renamed copy verdict: {res}")
+        rc, (fresh,) = run_cli(cli, ["analyze", mu, "--db", url, "--compact"])
+        check(rc == 0 and fresh["duplicates"] == [] and fresh["scene_cuts"] == mu_cuts,
+              f"scene {h}x{w} fresh video: {fresh}")
+        cli_s = time.perf_counter() - t0
+        launches = read_launches({fused.K1.name, hamming.K4.name}, f"scene {h}x{w} path")
+        blocks = sum(-(-n // cfg.pipeline.block_frames) for n in lengths.values())
+        check(launches[fused.K1.name] == blocks,
+              f"scene {h}x{w}: {launches[fused.K1.name]} K1 launches for "
+              f"{blocks} blocks")
+        timed = time_analyze(root, url)
+    finally:
+        for k in env:
+            del os.environ[k]
+    phase(f"scene_{h}x{w}", card=smi, k1_form=form,
+          band_rows=fused.k1_band_rows(h, w), grid_t128=fused.fingerprint_grid(
+              cfg.pipeline.block_frames, h, w), launches=launches, blocks=blocks,
+          renamed_copy=res["duplicates"], fresh_duplicates=fresh["duplicates"],
+          fresh_cuts=fresh["scene_cuts"], cli_s=cli_s, **timed)
+    return launches
 
 
 def drive_phash256(work: str, smi: str) -> dict:
@@ -2611,6 +2709,66 @@ def time_analyze(work: str, url: str) -> dict:
             "traced_analyze_s": traced_s, **device_busy(prof, traced_s)}
 
 
+def popc_ceiling_ms(dev, m: int, n: int, words: int) -> dict:
+    """The ceiling of K2's XOR + popcount formulation: one POPC per 32-bit
+    word of every (query, row) pair, at 16 POPC a clock per SM (Hopper's
+    issue rate for it) and the card's top SM clock; the same function on
+    the tensor cores is K4."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    popc = m * n * words
+    return {"popc": popc, "sms": sms, "max_sm_mhz": mhz,
+            "ms": popc / (sms * 16 * mhz * 1e6) * 1e3}
+
+
+def k1_timed_row(dev, gen, frames: int, h: int, w: int) -> dict:
+    """K1 over ``frames`` random frames of (h, w) from a fresh carry: per
+    call (CUDA events, interleaved with the plain version) and on the device
+    (torch.profiler), its grid, bands and bound; and how many frames' hashes
+    are not bit-identical to the plain version's and to golden.phash's (the
+    first K1_GOLDEN_FRAMES), ROADMAP C.8's record."""
+    import numpy as np
+    import torch
+
+    from tvidz_tpu_torch.ops import fused, golden, phash
+
+    x = torch.randint(0, 256, (frames, h, w), dtype=torch.uint8, device=dev,
+                      generator=gen)
+    left, right = phash.hash_operators(h, w, dev)
+    carry = fused.initial_fingerprint_carry(h, w, dev)
+    fn = lambda: fused.fingerprint_block(x, carry, left, right)  # noqa: E731
+    fn_plain = lambda: fused.fingerprint_block_plain(x, carry, left, right)  # noqa: E731
+    _, fk, _ = fn()
+    _, fp, _ = fn_plain()
+    vs_plain = hash_bits(fk, fp)
+    g = min(frames, K1_GOLDEN_FRAMES)
+    gold = np.stack([golden.phash(f) for f in x[:g].cpu().numpy()])
+    vs_golden = popcount_rows(phash.words_to_numpy(fk[:g]) ^ gold)
+    check(int(vs_plain.max()) <= HASH_BITS_TOL and int(vs_golden.max()) <= HASH_BITS_TOL,
+          f"K1 {frames} x {h}x{w}: hash bits {int(vs_plain.max())} from the plain "
+          f"version, {int(vs_golden.max())} from golden")
+    del fp
+    torch.cuda.empty_cache()
+    ms, plain_ms = interleaved_ms(fn, fn_plain, 5 if frames == FRAMES else 2)
+    b = k1_bound(frames, h, w)
+    rows = fused.k1_band_rows(h, w) if fused.k1_form(h, w) == 1 else h
+    return {"frames": frames, "hw": [h, w], "form": fused.k1_form(h, w),
+            "grid": fused.fingerprint_grid(frames, h, w), "bands": -(-h // rows),
+            "band_rows": rows, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms(fn, 10 if frames == FRAMES else 3),
+            "bound_ms": b[0], "bound_by": b[1],
+            "hash_max_bit_diff": int(vs_plain.max()),
+            "frames_not_bit_identical": int((vs_plain > 0).sum()),
+            "golden_frames": g, "golden_max_bit_diff": int(vs_golden.max()),
+            "frames_not_bit_identical_vs_golden": int((vs_golden > 0).sum())}
+
+
 def time_kernels(dev) -> dict:
     """K1-K4 at the main path's shapes (K1 also at the bench's 2^17-frame
     single-dispatch shape): per call by CUDA events, interleaved
@@ -2649,6 +2807,7 @@ def time_kernels(dev) -> dict:
     k2_plain = lambda: hamming.corpus_min_distance_plain(  # noqa: E731
         q, corpus, False)
     k2_ms, k2_plain_ms = interleaved_ms(k2, k2_plain, 10)
+    k2_ceiling = popc_ceiling_ms(dev, SCAN_M, SCAN_N, 2)
     k2_fmin = lambda: hamming.corpus_frame_min_xor(q, corpus)  # noqa: E731
     # K4: each mode per call and on the device; the plain ±1 version
     # beside the two modes on the main path (interleaved with them).
@@ -2686,23 +2845,10 @@ def time_kernels(dev) -> dict:
                 lambda: align.fragment_search_batch(dq, ql, dc, ln, FRAG_THR), 10)}
     k1_items = device_ms_by_kernel(k1, 20)
     check(len(k1_items) == 1, f"K1: device items per call {sorted(k1_items)}, not one")
-    # K1's second form at T=128, and K4 and K3 at W = 8 (phash256).
-    k1_geo = {}
-    for h, w in K1_TIMED_GEOMETRIES:
-        xg = torch.randint(0, 256, (FRAMES, h, w), dtype=torch.uint8,
-                           device=dev, generator=gen)
-        lg, rg = phash.hash_operators(h, w, dev)
-        cg = fused.initial_fingerprint_carry(h, w, dev)
-        fn = lambda: fused.fingerprint_block(xg, cg, lg, rg)  # noqa: E731
-        fn_plain = lambda: fused.fingerprint_block_plain(xg, cg, lg, rg)  # noqa: E731
-        ms, plain_ms = interleaved_ms(fn, fn_plain, 5)
-        b = k1_bound(FRAMES, h, w)
-        k1_geo[f"{h}x{w}"] = {"frames": FRAMES, "form": fused.k1_form(h, w),
-                              "grid": fused.fingerprint_grid(FRAMES, h, w),
-                              "ms": ms, "plain_ms": plain_ms,
-                              "device_ms": device_ms(fn, 10),
-                              "bound_ms": b[0], "bound_by": b[1]}
-        del xg
+    # K1's second form (a block at T=128 and a whole stream, per geometry),
+    # and K4 and K3 at W = 8 (phash256).
+    k1_geo = {label: k1_timed_row(dev, gen, frames, h, w)
+              for label, frames, h, w in K1_TIMED_GEOMETRIES}
     q8, corpus8 = scan_inputs(dev, {}, PHASH256_WORDS)
     k4_w8 = {}
     for mode in ("query_nearest", "frame_min"):
@@ -2779,7 +2925,7 @@ def time_kernels(dev) -> dict:
             "k1_device_items": sorted(k1_items),
             "k1_grid": fused.fingerprint_grid(FRAMES, HEIGHT, WIDTH),
             "k1_stream": k1_stream,
-            "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
+            "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms, "k2_popc_ceiling": k2_ceiling,
             "k2_device_ms": device_ms(k2, 10),
             "k2_frame_min_device_ms": device_ms(k2_fmin, 20),
             "k2_shape": [SCAN_M, SCAN_N], "k3": k3_times, "k4": k4_times,
@@ -2863,6 +3009,8 @@ def main(argv=None) -> int:
         path_launches["mesh"] = drive_mesh(dev, work, url, smi)
         path_launches["multihost"] = drive_multihost(work, smi)
         path_launches["wire_stack"] = drive_wire_stack(work, smi)
+        path_launches[f"scene_{SCENE_GEOMETRY[0]}x{SCENE_GEOMETRY[1]}"] = \
+            drive_scene_geometry(work, smi)
 
         stream_bound = k1_bound(K1_VALUE_FRAMES)
         times["k1_stream"].update(

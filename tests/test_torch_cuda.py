@@ -401,6 +401,41 @@ def test_odd_geometry_batch_is_one_launch_equal_to_lone_launches(dev):
         assert all(torch.equal(a, b) for a, b in zip(cb[j].scene, c1.scene))
 
 
+@pytest.mark.parametrize("h,w", [(180, 320), (720, 1280)])
+def test_k1_frame_hash_does_not_depend_on_how_it_is_fed(dev, h, w):
+    """K1's second form, row bands over CTAs: a frame's hash and score are
+    the same bits fed as one segment of T = n (one launch), as S = 4
+    segments of n / 4 chained by their carries (one launch, the dispatcher's
+    pass) and as four lone launches; each within the plain version's
+    tolerances."""
+    rng = np.random.default_rng(h + w + 1)
+    n = 64 if h * w < 500_000 else 16
+    x = torch.from_numpy(rng.integers(0, 256, size=(n, h, w), dtype=np.uint8)).to(dev)
+    left, right = phash.hash_operators(h, w, dev)
+    fresh = fused.initial_fingerprint_carry(h, w, dev)
+    before = fused.K1.launches
+    s1, f1, c1 = fused.fingerprint_block(x, fresh, left, right)
+    assert fused.K1.launches == before + 1
+    q = n // 4
+    carries, lone = [fresh], []
+    for j in range(4):
+        sc, fp, c = fused.fingerprint_block(x[j * q:(j + 1) * q], carries[-1], left, right)
+        lone.append((sc, fp))
+        carries.append(c)
+    before = fused.K1.launches
+    sb, fb, cb = fused.fingerprint_blocks_batched(list(x.view(4, q, h, w)), carries[:4],
+                                                  [q] * 4, left, right)
+    assert fused.K1.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(sb.reshape(-1), s1) and torch.equal(fb.reshape(n, 2), f1)
+    assert torch.equal(torch.cat([a for a, _ in lone]), s1)
+    assert torch.equal(torch.cat([b for _, b in lone]), f1)
+    assert all(torch.equal(a, b) for a, b in zip(cb[3].scene, c1.scene))
+    sp, fp, cp = fused.fingerprint_block_plain(x, fresh, left, right)
+    assert (s1 - sp).abs().max().item() <= 1e-6 and _bits(f1, fp).max() <= 2
+    assert torch.equal(c1.scene.prev_frame, cp.scene.prev_frame)
+
+
 @pytest.mark.parametrize("words", [1, 3, 8])
 @pytest.mark.parametrize("m,n", [(128, 70_001), (37, 3000)])
 def test_scans_any_width_match_plain(dev, words, m, n):

@@ -38,11 +38,14 @@ the wrong CTA, a ring slot overwritten too early) shows here without one:
   row, lanes holding one 4-byte word and one byte of columns with their R
   rows permuted, a select-free reduce-scatter shuffle tree, L folded in row
   by row and the warps' sums added in warp order; the carry at valid_t - 1.
-  Its second form, for every geometry the first cannot hold (any H, W and
-  alignment: 91x163, 180x320, 720x1280), keeps the plan, scores and
-  carries, and projects as a warp per group of 4 rows, lane l summing
-  columns l, l + 32, ..., a reduce-scatter tree with selects, L folded in
-  row by row, the warps' sums in warp order.
+  Its second form (every geometry but 90x160 and its like): row bands of
+  ``fused.k1_band_rows(H, W)`` rows, each band walked over a frame range by
+  one CTA from a slot that holds the band's enclosing 16-byte chunks (any
+  base, words read by a funnel shift), thread items of four columns over
+  interleaved row groups folded left-first (L · X, then · Rᵀ), each half of
+  the 64 sums reduce-scattered over a warp, warps and then bands added in
+  order; exact per-(frame, band) SADs give every mafd, so a range's first
+  score needs no frame read twice.
 
 Tolerance: exact (integer counts and indices; K1's scores and carries),
 and K1's hashes within 2 bits of the plain version's (float32 sums in
@@ -589,56 +592,176 @@ def _project(frame, left, right):
     return low
 
 
-def _project_general(frame, left, right):
-    """(64,) float32 low coefficients of one (H, W) frame as K1's second
-    form sums them: warp w takes the groups of 4 rows w, w + 8, ...; lane
-    l sums columns l, l + 32, ... of a row by FMA from 0; the eight sums go
-    through a reduce-scatter tree (offsets 16, 8, 4, selects keeping the
-    lane's half) and two sums (2, 1), leaving lane 4m + j with tmp[h][m];
-    L is folded in row by row, the warps' sums added in warp order."""
-    h_, w_ = frame.shape
-    cols = [_LANES + 32 * k for k in range(-(-w_ // 32))]
-    b4, b3, b2 = (_LANES & 16) > 0, (_LANES & 8) > 0, (_LANES & 4) > 0
-    j, m = _LANES & 3, _LANES >> 2
-    part = np.zeros((8, 64), np.float32)
-    for warp in range(8):
-        low0 = np.zeros(32, np.float32)
-        low1 = np.zeros(32, np.float32)
-        for h0 in range(4 * warp, h_, 32):
-            for h in range(h0, min(h0 + 4, h_)):
-                a = np.zeros((32, 8), np.float32)
-                for col in cols:
-                    ok = col < w_
-                    x = np.where(ok, frame[h, np.minimum(col, w_ - 1)], 0).astype(np.float32)
-                    r = np.where(ok[:, None], right[:, np.minimum(col, w_ - 1)].T,
-                                 np.float32(0))
-                    a = np.where(ok[:, None], _fma(x[:, None], r, a), a)
-                v = np.stack([np.where(b4, a[:, q + 4], a[:, q])
-                              + np.where(b4, a[:, q], a[:, q + 4])[_LANES ^ 16]
-                              for q in range(4)], 1).astype(np.float32)
-                u = np.stack([np.where(b3, v[:, q + 2], v[:, q])
-                              + np.where(b3, v[:, q], v[:, q + 2])[_LANES ^ 8]
-                              for q in range(2)], 1).astype(np.float32)
-                d = (np.where(b2, u[:, 1], u[:, 0])
-                     + np.where(b2, u[:, 0], u[:, 1])[_LANES ^ 4]).astype(np.float32)
-                d = (d + d[_LANES ^ 2]).astype(np.float32)
-                d = (d + d[_LANES ^ 1]).astype(np.float32)
-                low0 = _fma(left[2 * j, h], d, low0)
-                low1 = _fma(left[2 * j + 1, h], d, low1)
-        part[warp, 2 * j * 8 + m] = low0
-        part[warp, (2 * j + 1) * 8 + m] = low1
-    low = part[0].copy()
+def k1_ranges(n, ranges):
+    """K1's second form: the (lo, hi) frame ranges of a launch with
+    ``ranges`` ranges of each band (a range's first predecessor band is the
+    carry's at a segment's frame 0, else frame lo - 1's, loaded)."""
+    r = min(ranges, n)
+    return [(n * c // r, n * (c + 1) // r) for c in range(r)]
+
+
+def k1_bands(h, w, band_rows=None):
+    """[(h0, rows)] of K1's second form: bands of ``fused.k1_band_rows``
+    rows (the last may be shorter); ``band_rows`` overrides it, to model
+    several bands at the tests' small geometries."""
+    rows = band_rows or fused.k1_band_rows(h, w)
+    return [(h0, min(rows, h - h0)) for h0 in range(0, h, rows)]
+
+
+def _slot(flat, start, nbytes):
+    """(slot, head) as one bulk copy lands bytes [start, start + nbytes) of
+    ``flat`` (16-byte aligned at index 0): the 16-byte chunks holding them,
+    then 48 bytes the copy does not write (stale: 0xA5 here)."""
+    a, e = start & ~15, (start + nbytes + 15) & ~15
+    return np.concatenate([flat[a:e], np.full(48, 0xA5, np.uint8)]), start & 15
+
+
+def _words_at(slot, offs):
+    """The little-endian word at each byte offset of ``offs`` (any
+    alignment): two aligned words and a funnel shift."""
+    s32 = slot.view("<u4").astype(np.uint64)
+    lo, hi = s32[offs >> 2], s32[(offs >> 2) + 1]
+    return (((hi << np.uint64(32)) | lo) >> (np.uint64(8) * (offs & 3).astype(np.uint64))
+            & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def _bytes_of(words):
+    return words.view(np.uint8).reshape(-1, 4)
+
+
+def _band_sums(cur, cur_head, pred, pred_head, left_band, right, w):
+    """(64,) float32 sums of L[:, band] · X[band] · Rᵀ and the exact SAD of
+    one band, as K1's second form computes them: thread item (g, cw) takes
+    columns 4cw..4cw+3 of rows g, g + G, ... (G = 256 // words, at least
+    1; items past 256 go round again); u[j][c] = L[j][h] x summed by FMA in
+    row order; per half, v[j][qq] = sum_c u[j][c] R[4 half + qq][c] by FMA
+    in column order; reduce-scattered over each warp's 32 lanes and added
+    to the rounds' running sum; the warps added in order."""
+    rows = left_band.shape[1]
+    ncw = -(-w // 4)
+    groups = max(1, 256 // ncw)
+    items = groups * ncw
+    lanes = np.arange(32)
+    acc = np.zeros((2, 8, 32), np.float32)
+    sad = 0
+    for base in range(0, items, 256):
+        it = base + np.arange(256)
+        has = it < items
+        g = np.where(has, it // ncw, 0)
+        c0 = np.where(has, 4 * (it - g * ncw), 0)
+        valid = np.where(has, np.minimum(4, w - c0), 0)
+        mask = np.where(valid > 0, (0xFFFFFFFF >> (8 * (4 - np.maximum(valid, 1)))),
+                        0).astype(np.uint32)
+        u = np.zeros((256, 8, 4), np.float32)
+        for step in range(-(-rows // groups)):
+            hh = g + step * groups
+            act = has & (hh < rows)
+            hc = np.where(act, hh, 0)
+            wc = _words_at(cur, cur_head + hc * w + c0) & mask
+            wp = _words_at(pred, pred_head + hc * w + c0) & mask
+            diff = np.abs(_bytes_of(wc).astype(np.int64) - _bytes_of(wp).astype(np.int64))
+            sad += int(diff[act].sum())
+            x = _bytes_of(wc).astype(np.float32)
+            lt = left_band[:, hc].T
+            new = _fma(lt[:, :, None], x[:, None, :], u)
+            u = np.where(act[:, None, None], new, u)
+        for half in range(2):
+            v = np.zeros((256, 8, 4), np.float32)
+            for c in range(4):
+                ok = c < valid
+                col = np.where(ok, c0 + c, 0)
+                r = np.where(ok[:, None], right[4 * half:4 * half + 4, col].T, np.float32(0))
+                new = _fma(u[:, :, c][:, :, None], r[:, None, :], v)
+                v = np.where(ok[:, None, None], new, v)
+            x = v.reshape(8, 32, 32)
+            for off in (16, 8, 4, 2, 1):
+                x = (x + x[:, lanes ^ off]).astype(np.float32)
+            acc[half] = (acc[half] + x[:, 0]).astype(np.float32)
+    red = np.zeros((8, 64), np.float32)
+    for half in range(2):
+        # lane l holds (j, qq) = (l >> 2, l & 3) of the half
+        red[:, (lanes >> 2) * 8 + 4 * half + (lanes & 3)] = acc[half]
+    band = red[0].copy()
     for warp in range(1, 8):
-        low = (low + part[warp]).astype(np.float32)
-    return low
+        band = (band + red[warp]).astype(np.float32)
+    return band, sad
 
 
-def k1_model(lumas, carries, valid_ts, left, right, grid):
-    """(scores (S, T), fps (S, T, 2) uint32, new carries) as K1 computes
-    them on ``grid`` CTAs, in the form ``fused.k1_form`` picks for the
-    geometry; carries are (frame, mafd, has_prev)."""
+def k1_bands_model(lumas, carries, valid_ts, left, right, ranges, band_rows=None,
+                   base_offset=0, trace=None):
+    """(scores (S, T), fps (S, T, 2) uint32, new carries) as K1's second
+    form computes them with ``ranges`` frame ranges of each band: CTA
+    (band, range) walks its band of the range's frames, the predecessor's
+    band kept (a segment's frame 0: the carry's band); each segment's
+    frames lie at byte ``base_offset`` of a buffer of stale bytes; per
+    (frame, band) 64 sums and a SAD, written once, combined in band order;
+    a frame's score from its own and its predecessor's masked mafd. With
+    ``trace`` (a list), appends (frame, band, predecessor source)."""
     s_, t_, h_, w_ = lumas.shape
-    project = _project if fused.k1_form(h_, w_) == 0 else _project_general
+    n, hw = s_ * t_, h_ * w_
+    bands = k1_bands(h_, w_, band_rows)
+    rng = np.random.default_rng(5)
+    flats = [np.concatenate([rng.integers(0, 256, base_offset, dtype=np.uint8),
+                             x.reshape(-1), rng.integers(0, 256, 64, dtype=np.uint8)])
+             for x in lumas]
+    part = np.full((n, len(bands), 64), np.nan, np.float32)
+    sad = np.full((n, len(bands)), -1, np.int64)
+    new_frames = [np.full((h_, w_), np.nan, np.float32) for _ in range(s_)]
+
+    def carry_slot(seg, h0, rows):
+        band = carries[seg][0][h0:h0 + rows].astype(np.uint8).reshape(-1)
+        pad = (-band.size) % 16 + 48
+        return np.concatenate([band, np.full(pad, 0xA5, np.uint8)]), 0
+
+    for lo, hi in k1_ranges(n, ranges):
+        for b, (h0, rows) in enumerate(bands):
+            nbytes = rows * w_
+            seg, t = divmod(lo, t_)
+            pred = (carry_slot(seg, h0, rows) if t == 0 else
+                    _slot(flats[seg], base_offset + (t - 1) * hw + h0 * w_, nbytes))
+            for k in range(lo, hi):
+                seg, t = divmod(k, t_)
+                if k > lo and t == 0:
+                    pred = carry_slot(seg, h0, rows)
+                if trace is not None:
+                    trace.append((k, b, "carry" if t == 0 else
+                                  "load" if k == lo else "ring"))
+                cur = _slot(flats[seg], base_offset + t * hw + h0 * w_, nbytes)
+                assert sad[k, b] == -1, "a (frame, band) computed twice"
+                part[k, b], sad[k, b] = _band_sums(*cur, *pred, left[:, h0:h0 + rows],
+                                                   right, w_)
+                if t == valid_ts[seg] - 1:
+                    new_frames[seg][h0:h0 + rows] = (
+                        cur[0][cur[1]:cur[1] + nbytes].reshape(rows, w_))
+                pred = cur
+    assert (sad >= 0).all()
+    low = part[:, 0].copy()
+    for b in range(1, len(bands)):
+        low = (low + part[:, b]).astype(np.float32)
+    scores = np.zeros((s_, t_), np.float32)
+    mafd = np.zeros(n, np.float32)
+    new = [None] * s_
+    for k in range(n):
+        seg, t = divmod(k, t_)
+        fresh, carried = not carries[seg][2], np.float32(carries[seg][1])
+        start = t == 0 and fresh
+        m = np.float32(0) if start else np.float32(sad[k].sum()) / np.float32(hw)
+        mafd[k] = m
+        pm = carried if t == 0 else mafd[k - 1]
+        sc = np.minimum(m, np.abs(m - pm)) / np.float32(100)
+        scores[seg, t] = 0 if start else np.clip(sc, 0, 1)
+        if t == valid_ts[seg] - 1:
+            new[seg] = (new_frames[seg], m, True)
+    bits = phash.median_threshold_bits(torch.from_numpy(low), 8)
+    fps = phash.words_to_numpy(phash.pack_bits_i32(bits)).reshape(s_, t_, 2)
+    return scores, fps, new
+
+
+def _k1_ring_model(lumas, carries, valid_ts, left, right, grid):
+    """K1's first form (``k1_plan``): each CTA's range, a ring of three
+    frames, a range starting inside a segment also computing its
+    predecessor's mafd."""
+    s_, t_, h_, w_ = lumas.shape
     hw = np.float32(h_ * w_)
     scores = np.full((s_, t_), np.nan, np.float32)
     lows = np.full((s_, t_, 64), np.nan, np.float32)
@@ -664,7 +787,7 @@ def k1_model(lumas, carries, valid_ts, left, right, grid):
             start = t == 0 and fresh
             m = np.float32(0) if start else np.float32(total) / hw
             if k >= lo:
-                lows[seg, t] = project(cur, left, right)
+                lows[seg, t] = _project(cur, left, right)
                 pm = carried if t == 0 else prev_m
                 sc = np.minimum(m, np.abs(m - pm)) / np.float32(100)
                 scores[seg, t] = 0 if start else np.clip(sc, 0, 1)
@@ -674,6 +797,16 @@ def k1_model(lumas, carries, valid_ts, left, right, grid):
     bits = phash.median_threshold_bits(torch.from_numpy(lows.reshape(-1, 64)), 8)
     fps = phash.words_to_numpy(phash.pack_bits_i32(bits)).reshape(s_, t_, 2)
     return scores, fps, new
+
+
+def k1_model(lumas, carries, valid_ts, left, right, grid, **kw):
+    """(scores (S, T), fps (S, T, 2) uint32, new carries) as K1 computes
+    them in the form ``fused.k1_form`` picks for the geometry: the first on
+    ``grid`` CTAs, the second on ``grid`` frame ranges of each band;
+    carries are (frame, mafd, has_prev)."""
+    if fused.k1_form(*lumas.shape[2:]) == 0:
+        return _k1_ring_model(lumas, carries, valid_ts, left, right, grid)
+    return k1_bands_model(lumas, carries, valid_ts, left, right, grid, **kw)
 
 
 def _k1_case(h, w, seed=23, s=3, t=5):
@@ -697,7 +830,9 @@ def _torch_carry(c):
 
 K1_GEOMETRIES = [(12, 40), (6, 136), (8, 160),
                  # the second form: W > 160, W % 4, H W % 16, any alignment
-                 (9, 47), (5, 70), (3, 200), (7, 33)]
+                 (9, 47), (5, 70), (3, 200), (7, 33), (32, 508), (180, 320),
+                 # 321 column words: a second round of items
+                 (6, 1283)]
 
 
 @pytest.mark.parametrize("h,w,form", [
@@ -771,3 +906,131 @@ def test_k1_decomposition_does_not_depend_on_the_grid(h, w):
         lone = k1_model(lumas[j:j + 1], carries[j:j + 1], valid[j:j + 1], *ops, 3)
         assert np.array_equal(lone[0][0], want[0][j])
         assert np.array_equal(lone[1][0], want[1][j])
+
+
+# -- K1's second form: row bands over CTAs ---------------------------------------
+
+
+@pytest.mark.parametrize("h,w", [(180, 320), (720, 1280), (91, 163), (33, 47),
+                                 (1080, 1920), (1171, 7188), (2000, 160), (1, 1)])
+def test_k1_band_partition_depends_only_on_the_geometry(h, w):
+    """The bands are a function of (H, W): they cover the rows once, in
+    order, at most one shorter band last, and a CTA's ring of three bands
+    with Lᵀ's rows stays within the budget that lets two CTAs share an SM
+    (the kernel's smem_bytes, with its header and the slots' padding)."""
+    bands = k1_bands(h, w)
+    assert bands == k1_bands(h, w) and bands[0][0] == 0
+    assert all(a[0] + a[1] == b[0] for a, b in zip(bands, bands[1:]))
+    assert bands[-1][0] + bands[-1][1] == h
+    rows = bands[0][1]
+    assert all(r == rows for _, r in bands[:-1]) and 1 <= bands[-1][1] <= rows
+    smem = 2560 + 32 * rows + 3 * (-(-rows * w // 16) * 16 + 48)
+    assert 3 * rows * w + 32 * rows <= fused._BAND_BUDGET or rows == 1
+    assert 2 * (smem + 1024) <= 233472          # two CTAs on one SM
+
+
+@pytest.mark.parametrize("s,t,ranges", [(1, 128, 128), (1, 128, 9), (3, 5, 4),
+                                        (4, 7, 9), (1, 16384, 132)])
+def test_k1_ranges_cover_every_frame_once(s, t, ranges):
+    """The second form's ranges cover the S*T frames once, in order, each
+    band walking the same ranges."""
+    plan = k1_ranges(s * t, ranges)
+    assert plan[0][0] == 0 and plan[-1][1] == s * t
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    assert all(hi > lo for lo, hi in plan)
+
+
+@pytest.mark.parametrize("h,w,band_rows", [(9, 47, None), (9, 47, 2), (40, 2000, None),
+                                           (7, 33, 3)])
+def test_k1_frame_hash_does_not_depend_on_how_it_is_fed(h, w, band_rows):
+    """One frame's hash and score are the same bits whether its frames go in
+    as one segment of T = n, as S = 4 segments of n / 4 chained by their
+    carries, or as S = 1, T = n on another number of ranges."""
+    rng = np.random.default_rng(h * w)
+    n = 8
+    frames = rng.integers(0, 256, size=(n, h, w), dtype=np.uint8)
+    ops = phash.hash_operators_np(h, w)
+    fresh = (np.zeros((h, w), np.float32), np.float32(0), False)
+    one = k1_model(frames[None], [fresh], [n], *ops, 3, band_rows=band_rows)
+    other = k1_model(frames[None], [fresh], [n], *ops, 8, band_rows=band_rows)
+    assert np.array_equal(one[0], other[0]) and np.array_equal(one[1], other[1])
+    carries, scores, fps = [fresh], [], []
+    for j in range(4):
+        c = carries[-1]
+        got = k1_model(frames[None, 2 * j:2 * j + 2], [c], [2], *ops, 2,
+                       band_rows=band_rows)
+        scores.append(got[0][0])
+        fps.append(got[1][0])
+        carries.append(got[2][0])
+    assert np.array_equal(np.concatenate(scores), one[0][0])
+    assert np.array_equal(np.concatenate(fps), one[1][0])
+    batch = k1_model(frames.reshape(4, 2, h, w), carries[:4], [2] * 4, *ops, 5,
+                     band_rows=band_rows)
+    assert np.array_equal(batch[0].reshape(-1), one[0][0])
+    assert np.array_equal(batch[1].reshape(n, 2), one[1][0])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 15])
+def test_k1_band_words_at_any_base(offset):
+    """W = 163 from a base at byte ``offset``: every band's slot (the 16-byte
+    chunks that hold it, its first byte at the head) gives each item's word
+    of every row, the bytes past W masked, equal to the frame's pixels."""
+    rng = np.random.default_rng(offset)
+    h, w, rows = 9, 163, 4
+    frame = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
+    flat = np.concatenate([rng.integers(0, 256, offset, dtype=np.uint8),
+                           frame.reshape(-1), rng.integers(0, 256, 64, dtype=np.uint8)])
+    for h0, nrows in k1_bands(h, w, rows):
+        slot, head = _slot(flat, offset + h0 * w, nrows * w)
+        assert head == (offset + h0 * w) % 16 and slot.size % 16 == 0
+        for c0 in range(0, w, 4):
+            valid = min(4, w - c0)
+            mask = np.uint32(0xFFFFFFFF >> (8 * (4 - valid)))
+            got = _words_at(slot, head + np.arange(nrows) * w + c0) & mask
+            want = np.zeros((nrows, 4), np.uint8)
+            want[:, :valid] = frame[h0:h0 + nrows, c0:c0 + valid]
+            assert np.array_equal(_bytes_of(got), want)
+
+
+@pytest.mark.parametrize("h,w,band_rows", [(9, 163, None), (9, 163, 4), (33, 47, 8)])
+def test_k1_misaligned_base_equals_aligned(h, w, band_rows):
+    """The dispatcher's batch at 91x163 puts blocks at byte offset 3: the
+    model fed from offset 3 (head and tail bytes in partial 16-byte chunks)
+    gives the bits it gives from offset 0."""
+    lumas, carries, valid = _k1_case(h, w)
+    ops = phash.hash_operators_np(h, w)
+    want = k1_model(lumas, carries, valid, *ops, 4, band_rows=band_rows)
+    got = k1_model(lumas, carries, valid, *ops, 4, band_rows=band_rows, base_offset=3)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    for a, b in zip(got[2], want[2]):
+        assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+
+
+@pytest.mark.parametrize("ranges", [4, 6, 15])
+def test_k1_range_starting_mid_segment_takes_band_sads(ranges):
+    """Ranges that start inside a segment, over bands whose last is shorter
+    (9 rows in bands of 4): each range loads only its first frame's
+    predecessor band (no frame before it) and keeps the rest on chip; each
+    (frame, band) is computed once; the first score's predecessor mafd
+    comes from the other range's per-band SADs, and every score and carry
+    equals the plain version's."""
+    h, w = 9, 47
+    lumas, carries, valid = _k1_case(h, w)
+    s_, t_ = lumas.shape[:2]
+    trace = []
+    sc, fp, new = k1_model(lumas, carries, valid, *phash.hash_operators_np(h, w),
+                           ranges, band_rows=4, trace=trace)
+    assert sorted((k, b) for k, b, _ in trace) == [
+        (k, b) for k in range(s_ * t_) for b in range(3)]
+    starts = {lo for lo, _ in k1_ranges(s_ * t_, ranges)}
+    assert any(lo % t_ for lo in starts)
+    for k, _, src in trace:
+        assert src == ("carry" if k % t_ == 0 else "load" if k in starts else "ring")
+    left, right = phash.hash_operators(h, w, torch.device("cpu"))
+    for j in range(s_):
+        ps, pf, pc = fused.fingerprint_block_plain(
+            torch.from_numpy(lumas[j]), _torch_carry(carries[j]), left, right,
+            valid_t=valid[j])
+        assert np.array_equal(sc[j], ps.numpy())
+        assert np.array_equal(new[j][0], pc.scene.prev_frame.numpy())
+        assert new[j][1] == pc.scene.prev_mafd.item()

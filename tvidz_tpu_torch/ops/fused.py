@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,8 +57,8 @@ K1 = backend.register(backend.Kernel(
     "fingerprint_block",
     replaces="tvidz_tpu/ops/fused_pallas.py:74 (_fused_kernel)",
     entry_points={
-        "tvz_fingerprint_segments": [_i, _i, _i, _i, _i, _i64p, _p],
-        "tvz_fingerprint_grid": [_i, ctypes.c_longlong, _i, _i,
+        "tvz_fingerprint_segments": [_i, _i, _i, _i, _i, _i, _i64p, _p],
+        "tvz_fingerprint_grid": [_i, ctypes.c_longlong, _i, _i, _i,
                                  ctypes.POINTER(ctypes.c_int)],
         "tvz_median_pack": [_p, _i, _p, _p],
     },
@@ -66,12 +66,17 @@ K1 = backend.register(backend.Kernel(
 # Segments one launch takes (kMaxSegments in the source): the per-segment
 # pointers and valid_t ride in the launch parameters.
 MAX_SEGMENTS = 64
-# K1's limits (the source's kMaxSmem, kMaxPixels): a block's shared memory
-# on Hopper, and 255 H W < 2^31 for the exact int32 mafd sum.
+# K1's limits (the source's kMaxSmem, kMaxPixels, kMaxWidthGeneral): a
+# block's shared memory on Hopper, 255 H W < 2^31 for the exact int32 mafd
+# sum, and the widest row the second form takes.
 _MAX_SMEM = 232448
 _MAX_PIXELS = 8421504
-# Shared memory both forms spend beside their frames or operators.
+_MAX_WIDTH = 7188
+# Shared memory form 0 spends beside its frames and Lᵀ.
 _SMEM_COMMON = 4 * (8 * 64 + 64 + 16) + 4 * 16
+# Form 1: shared memory a CTA gives its three band slots and Lᵀ's band rows,
+# so that two CTAs (and their 128 registers a thread) share an SM.
+_BAND_BUDGET = 106496
 
 Result = Tuple[torch.Tensor, torch.Tensor, "FingerprintCarry"]
 
@@ -156,18 +161,45 @@ def k1_form(height: int, width: int) -> int:
     fingerprint_block.cu``): 0, three whole frames in shared memory and five
     columns a lane (W <= 160, a multiple of 4, H*W a multiple of 16, the
     frames within a block's shared memory: the production 90x160); else 1,
-    frames read from global memory at any H, W and alignment. Raises where
-    neither fits: H*W above 8,421,504 pixels (the exact int32 mafd sum) or
-    W above 7,187 (Rᵀ in shared memory)."""
+    the frame cut into row bands over CTAs (``k1_band_rows``) at any H, W
+    and alignment. Raises where neither fits: H*W above 8,421,504 pixels
+    (the exact int32 mafd sum) or W above 7,188."""
     h, w = int(height), int(width)
-    if h < 1 or w < 1 or h * w > _MAX_PIXELS or 32 * w + _SMEM_COMMON > _MAX_SMEM:
+    if h < 1 or w < 1 or h * w > _MAX_PIXELS or w > _MAX_WIDTH:
         raise ValueError(
             f"the fingerprint-block kernel takes 1 <= H*W <= {_MAX_PIXELS} and "
-            f"W <= {(_MAX_SMEM - _SMEM_COMMON) // 32}; got {h}x{w}")
+            f"W <= {_MAX_WIDTH}; got {h}x{w}")
     if (4 <= w <= 160 and w % 4 == 0 and (h * w) % 16 == 0
             and 3 * h * w + 32 * h + _SMEM_COMMON <= _MAX_SMEM):
         return 0
     return 1
+
+
+def k1_band_rows(height: int, width: int) -> int:
+    """Rows of a band of K1's second form: a function of (H, W) alone, so a
+    frame's hash is the same bits however it is launched. As many rows as
+    fit the band budget three times over (``_BAND_BUDGET``: a ring of
+    three bands and Lᵀ's rows), then evened out over the bands; the last
+    band may be shorter."""
+    h, w = int(height), int(width)
+    rows = max(1, min(h, _BAND_BUDGET // (3 * w + 32)))
+    bands = -(-h // rows)
+    return -(-h // bands)
+
+
+# Per (device, stream): form 1's arrival counters, int32 at 0, one a frame.
+# Each launch leaves them at 0, so a call allocates none unless it has more
+# frames than any call before it on that stream.
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _k1_counters(dev: torch.device, frames: int) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    ws = _COUNTERS.get(key)
+    if ws is None or ws.numel() < frames:
+        cap = max(frames, 2 * (0 if ws is None else ws.numel()), 4096)
+        ws = _COUNTERS[key] = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    return ws
 
 
 def _launch(lumas: Sequence[torch.Tensor], carries: Sequence[FingerprintCarry],
@@ -207,12 +239,21 @@ def _launch(lumas: Sequence[torch.Tensor], carries: Sequence[FingerprintCarry],
     o_sc, o_fp, o_fr, o_m, o_hp, n = _out_layout(s, t, h, w)
     buf = torch.empty((n,), dtype=torch.float32, device=dev)
     base = buf.data_ptr()
-    table = (ctypes.c_int64 * (7 + 5 * s))(
+    rows, scratch = h, (0, 0, 0)
+    if form == 1:
+        # Each (frame, band)'s 64 sums and SAD (written before they are
+        # read), and the frames' arrival counters (kept at 0).
+        rows = k1_band_rows(h, w)
+        frames, bands = s * t, -(-h // rows)
+        work = torch.empty((frames * bands * 65,), dtype=torch.float32, device=dev)
+        scratch = (work.data_ptr(), work.data_ptr() + 4 * 64 * frames * bands,
+                   _k1_counters(dev, frames).data_ptr())
+    table = (ctypes.c_int64 * (10 + 5 * s))(
         left.data_ptr(), right.data_ptr(), base + 4 * o_sc, base + 4 * o_fp,
-        base + 4 * o_fr, base + 4 * o_m, base + 4 * o_hp, *xp, *fp,
+        base + 4 * o_fr, base + 4 * o_m, base + 4 * o_hp, *scratch, *xp, *fp,
         *[sc.prev_mafd.data_ptr() for sc in scs],
         *[sc.has_prev.data_ptr() for sc in scs], *vts)
-    K1.launch("tvz_fingerprint_segments", dev, form, s, t, h, w, table)
+    K1.launch("tvz_fingerprint_segments", dev, form, s, t, h, w, rows, table)
     i32, b8 = buf.view(torch.int32), buf.view(torch.bool)
     if lone:                             # one segment, no batch dimension
         return (buf.as_strided((t,), (1,), o_sc),
@@ -233,10 +274,11 @@ def _launch(lumas: Sequence[torch.Tensor], carries: Sequence[FingerprintCarry],
 
 def fingerprint_grid(frames: int, height: int, width: int) -> int:
     """The number of CTAs K1 launches for ``frames`` frames of (H, W) on the
-    current CUDA device (each walks a contiguous range of them)."""
+    current CUDA device (form 0: each walks a contiguous range of them;
+    form 1: bands x ranges, each CTA one band of a range)."""
     out = ctypes.c_int(0)
     K1.call("tvz_fingerprint_grid", k1_form(height, width), frames, height,
-            width, ctypes.byref(out))
+            width, k1_band_rows(height, width), ctypes.byref(out))
     return out.value
 
 
