@@ -234,13 +234,19 @@ def test_presigned_urls_match(monkeypatch):
 
 _MASKS = [(re.compile(rb"<RequestId>[0-9a-f]+</RequestId>"), b"<RequestId/>"),
           (re.compile(rb"<ReceiptHandle>[^<]*</ReceiptHandle>"), b"<ReceiptHandle/>")]
+# The port's S3 events carry the time real S3 stamps on a record; the
+# reference's fakes leave it out. It is taken out of the port's bodies, and
+# counted, before they are compared.
+_EVENT_TIME = re.compile(
+    rb'"eventTime": "\d{4}-\d\d-\d\dT\d\d:\d\d:\d\d\.\d{3}Z", ')
 # A presigned URL's signature covers the emulator's address.
 _SIGNATURE = re.compile(r"X-Amz-Signature=[0-9a-f]+")
 
 
-def _aws_sequence(module, root: str) -> list:
+def _aws_sequence(module, root: str, event_times: list) -> list:
     """(method, path, status, masked body) of one request sequence through
-    ``module``'s MiniAWS, every client the port's."""
+    ``module``'s MiniAWS, every client the port's; ``event_times`` gets the
+    number of ``eventTime`` fields taken out of each body."""
     _, server, base = module.start_miniaws(root)
     log = []
     send = requests.Session.send
@@ -250,6 +256,8 @@ def _aws_sequence(module, root: str) -> list:
         body = r.content.replace(base.encode(), b"BASE")
         for pattern, mask in _MASKS:
             body = pattern.sub(mask, body)
+        body, stamped = _EVENT_TIME.subn(b"", body)
+        event_times.append(stamped)
         log.append((request.method, _SIGNATURE.sub("X-Amz-Signature=S",
                                                     request.path_url),
                     r.status_code, body))
@@ -295,11 +303,17 @@ def _aws_sequence(module, root: str) -> list:
 def test_miniaws_sequence_matches(monkeypatch, tmp_path):
     amz = datetime.datetime.now(datetime.timezone.utc).strftime("%Y%m%dT%H%M%SZ")
     _fixed_clock(monkeypatch, amz)
-    ours = _aws_sequence(miniaws, str(tmp_path / "port"))
-    theirs = _aws_sequence(jax_miniaws, str(tmp_path / "jax"))
+    stamped_ours, stamped_theirs = [], []
+    ours = _aws_sequence(miniaws, str(tmp_path / "port"), stamped_ours)
+    theirs = _aws_sequence(jax_miniaws, str(tmp_path / "jax"), stamped_theirs)
     assert len(ours) == len(theirs) > 15
     for a, b in zip(ours, theirs):
         assert a == b
+    # Only the S3 event's message carried the field: the first receive.
+    receives = [i for i, (_, path, _, body) in enumerate(ours)
+                if b"<ReceiveMessageResult>" in body and b"<Message>" in body]
+    assert [i for i, n in enumerate(stamped_ours) if n] == receives[:1]
+    assert stamped_ours[receives[0]] == 1 and not any(stamped_theirs)
     statuses = [s for _, _, s, _ in ours]
     assert 403 in statuses and 404 in statuses and statuses.count(200) > 10
 

@@ -19,6 +19,17 @@ is unchanged, in full after growth or compaction:
   K3 on CUDA). The reference's per-shape kernel->XLA fallback
   (``pallas_fragment_dispatch``) has no counterpart: on CUDA a K3 build or
   launch failure raises.
+
+Spans (``utils.timing``): ``nearest_video_counts`` is ``corpus.lock`` (the
+wait for the corpus lock), ``corpus.vid_copy`` (the host copy of the rows'
+video table, attr ``bytes``), ``corpus.k4`` (the mirror's sync and K4's
+launch), ``corpus.pull`` and ``corpus.evidence`` (the host count);
+``locate_fragments`` is a ``locate`` span over ``corpus.lock``,
+``locate.place``, ``locate.launch`` (bucket syncs and K3 launches),
+``locate.pull`` and ``locate.rank``. While tracing is on, a CUDA event pair
+around one request's launches (made under the lock, so no other request's
+scans come between them) gives the ``locate`` span's attr ``k3_device_s``,
+read after the pull has waited for them. The pairs are kept for reuse.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 
 from tvidz_tpu_torch import backend
 from tvidz_tpu_torch.utils import log
+from tvidz_tpu_torch.utils.timing import span
 from tvidz_tpu_torch.ops.align import fragment_search_batch
 from tvidz_tpu_torch.ops.hamming import corpus_frame_min, corpus_query_nearest
 from tvidz_tpu_torch.ops.timestamps import timestamp_match_counts
@@ -108,6 +120,10 @@ class DeviceCorpus:
             -(-fp_initial_capacity // self._fp_block_n) * self._fp_block_n
         )
         self._lock = threading.RLock()
+        # Free CUDA event pairs for a traced locate's device time, made on
+        # first use and kept: destroying an event blocks with the GIL held
+        # while another thread waits on the stream, stalling every thread.
+        self._k3_events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
         self._init_state()
 
     def _init_state(self) -> None:
@@ -543,24 +559,32 @@ class DeviceCorpus:
         """{video_id: #query frames whose nearest corpus fingerprint belongs
         to that video (within hamming_threshold)} — each QUERY frame
         contributes at most once."""
-        with self._lock:
+        with span("corpus.lock"):
+            self._lock.acquire()
+        try:
             if self._fp_count == 0 or query.shape[0] == 0:
                 return {}
-            self._sync_fp()
-            fp_vid = self._fp_vid[: self._fp_count].copy()
             count_n = self._fp_count
-            q_min, q_arg = self._query_nearest(self._padded_queries(query),
-                                               self._fp_dev)
+            with span("corpus.vid_copy", bytes=4 * count_n):
+                fp_vid = self._fp_vid[:count_n].copy()
+            with span("corpus.k4"):
+                self._sync_fp()
+                q_min, q_arg = self._query_nearest(
+                    self._padded_queries(query), self._fp_dev)
+        finally:
+            self._lock.release()
         m = query.shape[0]
-        q_min = q_min[:m].cpu().numpy()
-        q_arg = q_arg[:m].cpu().numpy()
+        with span("corpus.pull"):
+            q_min = q_min[:m].cpu().numpy()
+            q_arg = q_arg[:m].cpu().numpy()
         out: Dict[int, int] = {}
-        for i in range(m):
-            # q_arg may land on a sentinel row beyond count_n.
-            if q_min[i] <= self.hamming_threshold and q_arg[i] < count_n:
-                vid = int(fp_vid[q_arg[i]])
-                if vid >= 0 and vid != exclude_video_id:
-                    out[vid] = out.get(vid, 0) + 1
+        with span("corpus.evidence"):
+            for i in range(m):
+                # q_arg may land on a sentinel row beyond count_n.
+                if q_min[i] <= self.hamming_threshold and q_arg[i] < count_n:
+                    vid = int(fp_vid[q_arg[i]])
+                    if vid >= 0 and vid != exclude_video_id:
+                        out[vid] = out.get(vid, 0) + 1
         return out
 
     def _place_fragment_query(self, q: np.ndarray) -> torch.Tensor:
@@ -601,6 +625,12 @@ class DeviceCorpus:
         each is padded to the batch's 64-frame width, which moves no
         non-zero score's offset (a row t >= q_len never counts), and
         zero-score rows are dropped."""
+        with span("locate") as sp:
+            return self._locate_fragments(sp, query_fps_list, top_k,
+                                          hamming_threshold, exclude_video_ids)
+
+    def _locate_fragments(self, sp, query_fps_list, top_k, hamming_threshold,
+                          exclude_video_ids):
         thr = self.hamming_threshold if hamming_threshold is None else hamming_threshold
         excl = list(exclude_video_ids or [None] * len(query_fps_list))
         out: List[List[Tuple[int, int, int]]] = [[] for _ in query_fps_list]
@@ -616,26 +646,54 @@ class DeviceCorpus:
         for j, i in enumerate(live):
             q[j, : query_fps_list[i].shape[0]] = np.asarray(
                 query_fps_list[i], np.uint32)
-        with self._lock:
+        with span("corpus.lock"):
+            self._lock.acquire()
+        try:
             if not self._al_row:
                 return out
-            q_dev = self._place_fragment_query(q)
-            q_lens = self._to_device(np.asarray(
-                [query_fps_list[i].shape[0] for i in live], np.int32))
+            with span("locate.place"):
+                q_dev = self._place_fragment_query(q)
+                q_lens = self._to_device(np.asarray(
+                    [query_fps_list[i].shape[0] for i in live], np.int32))
             # Every bucket's scan is launched before any result is pulled,
             # and under the lock: a later dirty-row sync writes the bucket
             # in place, after these reads on the same stream.
             pending = []
-            for bu in self._al_buckets:
-                if bu is None or bu.count == 0:
-                    continue
-                self._sync_al_bucket(bu)
-                pending.append((
-                    self._fragment_query(q_dev, q_lens, bu.dev, bu.len_dev, thr),
-                    bu.vid[: bu.count].copy(), bu.count))
-        pulled = [(offs[:, :count].cpu().numpy(),
-                   scores[:, :count].cpu().numpy(), vids)
-                  for (offs, scores), vids, count in pending]
+            events = None
+            with span("locate.launch"):
+                if sp.traced and self.device.type == "cuda":
+                    events = (self._k3_events.pop() if self._k3_events else
+                              (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+                    events[0].record()
+                for bu in self._al_buckets:
+                    if bu is None or bu.count == 0:
+                        continue
+                    self._sync_al_bucket(bu)
+                    pending.append((
+                        self._fragment_query(q_dev, q_lens, bu.dev, bu.len_dev,
+                                             thr),
+                        bu.vid[: bu.count].copy(), bu.count))
+                if events is not None:
+                    events[1].record()
+        finally:
+            self._lock.release()
+        with span("locate.pull"):
+            pulled = [(offs[:, :count].cpu().numpy(),
+                       scores[:, :count].cpu().numpy(), vids)
+                      for (offs, scores), vids, count in pending]
+        if events is not None:
+            if pending:
+                sp.note(k3_device_s=events[0].elapsed_time(events[1]) / 1e3)
+            self._k3_events.append(events)
+        with span("locate.rank"):
+            self._rank(out, live, pulled, excl, top_k)
+        return out
+
+    @staticmethod
+    def _rank(out, live, pulled, excl, top_k) -> None:
+        """Each live query's top_k (video, offset, score), zero scores
+        dropped, into ``out``."""
         for j, i in enumerate(live):
             keep = [vids >= 0 if excl[i] is None
                     else (vids >= 0) & (vids != excl[i])
@@ -651,4 +709,3 @@ class DeviceCorpus:
             order = np.argsort(-scores, kind="stable")[:top_k]
             out[i] = [(int(vids[k]), int(offs[k]), int(scores[k]))
                       for k in order]
-        return out

@@ -56,6 +56,7 @@ from tvidz_tpu_torch.pipeline.checkpoint import (
 from tvidz_tpu_torch.pipeline.prefetch import BlockPrefetcher
 from tvidz_tpu_torch.pipeline.progress import AnalysisRegistry
 from tvidz_tpu_torch.utils import StageTimer, log
+from tvidz_tpu_torch.utils.timing import span
 
 # fetch(bucket, key, local_path) -> None; raises on failure.
 Fetcher = Callable[[str, str, str], None]
@@ -197,6 +198,17 @@ class Analyzer:
     def analyze(self, bucket: str, key: str,
                 retry_ctx: Optional[AnalysisRetryContext] = None,
                 ) -> AnalysisResult:
+        """One upload, as an ``analyze`` span. Its direct children cover
+        its wall: the five stages, ``store`` (store calls outside
+        finalization), ``checkpoint``, ``decode.open`` (the decoder, the
+        carry, the prefetch thread's start), ``decode.wait`` (blocked on
+        the block iterator or prefetcher), ``thumbnail``, ``progress``
+        (registry update and its log line) and ``finalize``."""
+        with span("analyze"):
+            return self._analyze(bucket, key, retry_ctx)
+
+    def _analyze(self, bucket: str, key: str,
+                 retry_ctx: Optional[AnalysisRetryContext]) -> AnalysisResult:
         cfg = self.config
         filename, original_filename = extract_filenames(key)
         log("filename-extraction",
@@ -242,7 +254,8 @@ class Analyzer:
                 return self.store.add_video(
                     original_filename, upload_time=upload_ts)
 
-            video = self._store_retry("add_video", _add_video_once)
+            with span("store"):
+                video = self._store_retry("add_video", _add_video_once)
         except Exception as e:  # noqa: BLE001
             # Store down for the WHOLE retry window before a row even
             # exists: record a verdict so /status and SSE watchers see a
@@ -355,8 +368,10 @@ class Analyzer:
                 original_filename=filename,
                 clean_filename=original_filename,
             )
-            self.registry.finish(analysis_key, **final_state)
-            self._persist_final_state(original_filename, video_id, final_state)
+            with span("finalize"):
+                self.registry.finish(analysis_key, **final_state)
+                self._persist_final_state(original_filename, video_id,
+                                          final_state)
         except Exception as e:  # noqa: BLE001 — mirrors app.py:303's blanket handler
             error_msg = str(e)
             # Store down through FINALIZATION too (add_timestamps /
@@ -394,12 +409,14 @@ class Analyzer:
                 original_filename=filename,
                 clean_filename=original_filename,
             )
-            self.registry.finish(analysis_key, **final_state)
-            if not retrying:
-                # (When retrying, the store is down and a successful re-run
-                # overwrites this state anyway — skip the doomed persist.)
-                self._persist_final_state(
-                    original_filename, video_id, final_state)
+            with span("finalize"):
+                self.registry.finish(analysis_key, **final_state)
+                if not retrying:
+                    # (When retrying, the store is down and a successful
+                    # re-run overwrites this state anyway — skip the doomed
+                    # persist.)
+                    self._persist_final_state(
+                        original_filename, video_id, final_state)
             if transient:
                 # (the finally below still discards _active_vids and
                 # removes the local file on this raise path)
@@ -410,12 +427,14 @@ class Analyzer:
         finally:
             with self._active_lock:
                 self._active_vids.discard(video_id)
-            if os.path.exists(local_path):
-                try:
-                    os.remove(local_path)
-                    log("cleanup", f"Removed file: {local_path}")
-                except OSError as e:
-                    log("cleanup", f"Failed to remove file: {local_path} ({e})")
+            with span("finalize"):
+                if os.path.exists(local_path):
+                    try:
+                        os.remove(local_path)
+                        log("cleanup", f"Removed file: {local_path}")
+                    except OSError as e:
+                        log("cleanup",
+                            f"Failed to remove file: {local_path} ({e})")
 
         return AnalysisResult(
             analysis_key=analysis_key,
@@ -527,10 +546,11 @@ class Analyzer:
         block_t = cfg.pipeline.block_frames
         h, w = cfg.pipeline.scene_height, cfg.pipeline.scene_width
 
-        decoder = get_decoder(local_path, lowres=cfg.pipeline.decode_lowres,
-                              dct_dc=cfg.pipeline.decode_dct_dc)
-        # device seam (tvidz_tpu/pipeline/analyzer.py:517)
-        carry = initial_fingerprint_carry(h, w, self._model.device)
+        with span("decode.open"):
+            decoder = get_decoder(local_path, lowres=cfg.pipeline.decode_lowres,
+                                  dct_dc=cfg.pipeline.decode_dct_dc)
+            # device seam (tvidz_tpu/pipeline/analyzer.py:517)
+            carry = initial_fingerprint_carry(h, w, self._model.device)
 
         scene_cuts: List[float] = []
         all_fps: List[np.ndarray] = []
@@ -568,11 +588,13 @@ class Analyzer:
             # across a crash and its re-upload (epoch prefixes differ per
             # attempt, the clean name and content don't).
             logical = clean_filename or filename
-            ckpt_key = f"{logical}:{content_signature(local_path)}"
-            # A transient store outage degrades to a fresh analysis
-            # (checkpointing is an optimization, never a dependency).
-            blob = self._store_soft(
-                "load_checkpoint", lambda: self.store.load_checkpoint(ckpt_key))
+            with span("checkpoint"):
+                ckpt_key = f"{logical}:{content_signature(local_path)}"
+                # A transient store outage degrades to a fresh analysis
+                # (checkpointing is an optimization, never a dependency).
+                blob = self._store_soft(
+                    "load_checkpoint",
+                    lambda: self.store.load_checkpoint(ckpt_key))
             if blob is not None:
                 try:
                     ckpt = AnalysisCheckpoint.from_blob(blob)
@@ -674,23 +696,31 @@ class Analyzer:
                     duplicates=sorted(set(dups_to_report)),
                 )
 
-        block_iter = decoder.blocks(local_path, block_t, h, w)
-        prefetcher = None
-        if cfg.pipeline.decode_prefetch_blocks > 0:
-            prefetcher = BlockPrefetcher(
-                block_iter, depth=cfg.pipeline.decode_prefetch_blocks
-            )
-            block_iter = iter(prefetcher)
+        with span("decode.open"):
+            block_iter = decoder.blocks(local_path, block_t, h, w)
+            prefetcher = None
+            if cfg.pipeline.decode_prefetch_blocks > 0:
+                prefetcher = BlockPrefetcher(
+                    block_iter, depth=cfg.pipeline.decode_prefetch_blocks
+                )
+                block_iter = iter(prefetcher)
 
         try:
-            for block in block_iter:
+            block_iter = iter(block_iter)
+            while True:
+                with span("decode.wait"):
+                    block = next(block_iter, None)
+                if block is None:
+                    break
                 t = block.luma.shape[0]
                 if thumbnail_pending:
                     # Before the resume-skip: a crash after the FINAL
                     # checkpoint replays every block, and the new video row
                     # would otherwise never get a thumbnail.
                     thumbnail_pending = False
-                    self._write_thumbnail(video_id, block.luma[min(t - 1, t // 2)])
+                    with span("thumbnail"):
+                        self._write_thumbnail(
+                            video_id, block.luma[min(t - 1, t // 2)])
                 if block.start_frame + t <= resume_from:
                     # Already fingerprinted in a previous run: replay decode
                     # only — keeping the native scene recurrence warm.
@@ -740,28 +770,31 @@ class Analyzer:
                         video_id, fp_evidence, dups_to_report, deferred
                     )
 
-                progress = self._progress(current_frame, total_frames, scene_cuts)
-                now = time.time()
-                if (
-                    progress > last_progress
-                    or now - last_update_time > cfg.pipeline.update_throttle_s
-                    or new_cut
-                ):
-                    last_progress = progress
-                    last_update_time = now
-                    log("progress-update",
-                        f"{filename}: {progress*100:.2f}% "
-                        f"({current_frame}/{total_frames}) scene_cuts={len(scene_cuts)}")
-                    self.registry.update(
-                        analysis_key,
-                        progress=progress,
-                        scene_cuts=list(scene_cuts),
-                        **(
-                            {"duplicates": sorted(set(dups_to_report))}
-                            if dups_to_report
-                            else {}
-                        ),
-                    )
+                with span("progress"):
+                    progress = self._progress(current_frame, total_frames,
+                                              scene_cuts)
+                    now = time.time()
+                    if (
+                        progress > last_progress
+                        or now - last_update_time > cfg.pipeline.update_throttle_s
+                        or new_cut
+                    ):
+                        last_progress = progress
+                        last_update_time = now
+                        log("progress-update",
+                            f"{filename}: {progress*100:.2f}% "
+                            f"({current_frame}/{total_frames}) "
+                            f"scene_cuts={len(scene_cuts)}")
+                        self.registry.update(
+                            analysis_key,
+                            progress=progress,
+                            scene_cuts=list(scene_cuts),
+                            **(
+                                {"duplicates": sorted(set(dups_to_report))}
+                                if dups_to_report
+                                else {}
+                            ),
+                        )
 
                 blocks_since_ckpt += 1
                 if (
@@ -770,31 +803,35 @@ class Analyzer:
                     and blocks_since_ckpt >= cfg.pipeline.checkpoint_every_blocks
                 ):
                     blocks_since_ckpt = 0
-                    blob_out = AnalysisCheckpoint.capture(
-                        ckpt_key, current_frame, scene_cuts, all_fps,
-                        carry, video_id=video_id,
-                    ).to_blob()
-                    # Missing one checkpoint during an outage only widens
-                    # the resume window — never worth failing the analysis.
-                    self._store_soft(
-                        "save_checkpoint",
-                        lambda: self.store.save_checkpoint(ckpt_key, blob_out))
+                    with span("checkpoint"):
+                        blob_out = AnalysisCheckpoint.capture(
+                            ckpt_key, current_frame, scene_cuts, all_fps,
+                            carry, video_id=video_id,
+                        ).to_blob()
+                        # Missing one checkpoint during an outage only
+                        # widens the resume window — never worth failing
+                        # the analysis.
+                        self._store_soft(
+                            "save_checkpoint",
+                            lambda: self.store.save_checkpoint(ckpt_key,
+                                                               blob_out))
 
                 if duplicate_found and cfg.pipeline.early_exit:
                     # Early termination — the analog of process.terminate()
                     # (app.py:249-255): stop decoding, keep what we have.
-                    log("duplicate",
-                        "decode loop terminated early due to duplicate detection.")
-                    self.registry.update(
-                        analysis_key,
-                        progress=progress,
-                        scene_cuts=list(scene_cuts),
-                        **(
-                            {"duplicates": sorted(set(dups_to_report))}
-                            if dups_to_report
-                            else {}
-                        ),
-                    )
+                    with span("progress"):
+                        log("duplicate", "decode loop terminated early due "
+                                         "to duplicate detection.")
+                        self.registry.update(
+                            analysis_key,
+                            progress=progress,
+                            scene_cuts=list(scene_cuts),
+                            **(
+                                {"duplicates": sorted(set(dups_to_report))}
+                                if dups_to_report
+                                else {}
+                            ),
+                        )
                     break
 
         finally:
@@ -803,62 +840,63 @@ class Analyzer:
                 # path (early-exit break, device/store exceptions).
                 prefetcher.close()
 
-        # Persist artifacts: timestamps (final) + packed fingerprints — makes
-        # re-analysis idempotent (checkpoint/resume story, SURVEY.md §5).
-        # These are the CRITICAL durable record: retry transient outages
-        # with backoff; exhausted retries fail the analysis (ref parity).
-        if scene_cuts:
-            self._store_retry(
-                "add_timestamps(final)",
-                lambda: self.store.add_timestamps(video_id, scene_cuts))
-            self.corpus.upsert_timestamps(video_id, scene_cuts)
-        if all_fps:
-            fps_full = np.concatenate(all_fps)
-            self._store_retry(
-                "add_fingerprints(final)",
-                lambda: self.store.add_fingerprints(video_id, fps_full))
-            self.corpus.append_fingerprints(video_id, fps_full)
-
-        # Re-apply store writes skipped during a mid-stream outage: deferred
-        # orphan-row deletes first (so nothing below can resolve against a
-        # superseded row), then the latest duplicates payload, and duplicate
-        # ids whose filenames the store couldn't resolve at verdict time.
-        for dead_vid in deferred.delete_vids:
-            try:
+        with span("finalize"):
+            # Persist artifacts: timestamps (final) + packed fingerprints — makes
+            # re-analysis idempotent (checkpoint/resume story, SURVEY.md §5).
+            # These are the CRITICAL durable record: retry transient outages
+            # with backoff; exhausted retries fail the analysis (ref parity).
+            if scene_cuts:
                 self._store_retry(
-                    "delete_video(deferred)",
-                    lambda d=dead_vid: self.store.delete_video(d))
-            except Exception as e:  # noqa: BLE001 — filtered below
-                if not is_transient_store_error(e):
-                    raise
-                # The orphan is already gone from the device corpus (what
-                # verdicts read); a still-durable row is cleanup debt the
-                # next resume of this content retries — never worth failing
-                # a finished analysis.
-                log("store-outage",
-                    f"orphan row {dead_vid} still durable (store outage): {e}")
-        deferred.delete_vids = []
-        if deferred.dup_ids is not None:
-            self._store_retry(
-                "update_duplicates(deferred)",
-                lambda: self.store.update_duplicates(video_id, deferred.dup_ids))
-            deferred.dup_ids = None
-        for dup_id in deferred.unresolved:
-            dup_video = self._store_retry(
-                "get_video_by_id(deferred)",
-                lambda d=dup_id: self.store.get_video_by_id(d))
-            if dup_video and dup_video.filename not in dups_to_report:
-                dups_to_report.append(dup_video.filename)
-                log("duplicate",
-                    f"Match found: {dup_video.filename} "
-                    "(resolved after store outage)")
+                    "add_timestamps(final)",
+                    lambda: self.store.add_timestamps(video_id, scene_cuts))
+                self.corpus.upsert_timestamps(video_id, scene_cuts)
+            if all_fps:
+                fps_full = np.concatenate(all_fps)
+                self._store_retry(
+                    "add_fingerprints(final)",
+                    lambda: self.store.add_fingerprints(video_id, fps_full))
+                self.corpus.append_fingerprints(video_id, fps_full)
 
-        if ckpt_key is not None:
-            # A leftover checkpoint row is harmless (superseded on the next
-            # run) — never worth failing a finished analysis over.
-            self._store_soft(
-                "delete_checkpoint",
-                lambda: self.store.delete_checkpoint(ckpt_key))
+            # Re-apply store writes skipped during a mid-stream outage: deferred
+            # orphan-row deletes first (so nothing below can resolve against a
+            # superseded row), then the latest duplicates payload, and duplicate
+            # ids whose filenames the store couldn't resolve at verdict time.
+            for dead_vid in deferred.delete_vids:
+                try:
+                    self._store_retry(
+                        "delete_video(deferred)",
+                        lambda d=dead_vid: self.store.delete_video(d))
+                except Exception as e:  # noqa: BLE001 — filtered below
+                    if not is_transient_store_error(e):
+                        raise
+                    # The orphan is already gone from the device corpus (what
+                    # verdicts read); a still-durable row is cleanup debt the
+                    # next resume of this content retries — never worth failing
+                    # a finished analysis.
+                    log("store-outage",
+                        f"orphan row {dead_vid} still durable (store outage): {e}")
+            deferred.delete_vids = []
+            if deferred.dup_ids is not None:
+                self._store_retry(
+                    "update_duplicates(deferred)",
+                    lambda: self.store.update_duplicates(video_id, deferred.dup_ids))
+                deferred.dup_ids = None
+            for dup_id in deferred.unresolved:
+                dup_video = self._store_retry(
+                    "get_video_by_id(deferred)",
+                    lambda d=dup_id: self.store.get_video_by_id(d))
+                if dup_video and dup_video.filename not in dups_to_report:
+                    dups_to_report.append(dup_video.filename)
+                    log("duplicate",
+                        f"Match found: {dup_video.filename} "
+                        "(resolved after store outage)")
+
+            if ckpt_key is not None:
+                # A leftover checkpoint row is harmless (superseded on the next
+                # run) — never worth failing a finished analysis over.
+                self._store_soft(
+                    "delete_checkpoint",
+                    lambda: self.store.delete_checkpoint(ckpt_key))
 
         return scene_cuts, dups_to_report
 
@@ -953,31 +991,32 @@ class Analyzer:
         (soft — latest payload is kept in ``deferred`` until a write lands)
         and resolve duplicate ids to filenames, deferring ids the store
         could not resolve mid-outage to finalization."""
-        deferred.dup_ids = list(dup_ids)
-        persisted = self._store_soft(
-            "update_duplicates",
-            lambda: (self.store.update_duplicates(video_id, dup_ids), True)[1],
-            default=False,
-        )
-        if persisted:
-            deferred.dup_ids = None
-        if replace:
-            del dups_to_report[:]
-            del deferred.unresolved[:]
-        for dup_id in dup_ids:
-            dup_video = self._store_soft(
-                "get_video_by_id",
-                lambda d=dup_id: self.store.get_video_by_id(d),
-                default=_OUTAGE,
+        with span("store"):
+            deferred.dup_ids = list(dup_ids)
+            persisted = self._store_soft(
+                "update_duplicates",
+                lambda: (self.store.update_duplicates(video_id, dup_ids), True)[1],
+                default=False,
             )
-            if dup_video is _OUTAGE:
-                if dup_id not in deferred.unresolved:
-                    deferred.unresolved.append(dup_id)
-                continue
-            if dup_video and dup_video.filename not in dups_to_report:
-                dups_to_report.append(dup_video.filename)
-                log("duplicate",
-                    f"Match found: {dup_video.filename} ({detail[dup_id]})")
+            if persisted:
+                deferred.dup_ids = None
+            if replace:
+                del dups_to_report[:]
+                del deferred.unresolved[:]
+            for dup_id in dup_ids:
+                dup_video = self._store_soft(
+                    "get_video_by_id",
+                    lambda d=dup_id: self.store.get_video_by_id(d),
+                    default=_OUTAGE,
+                )
+                if dup_video is _OUTAGE:
+                    if dup_id not in deferred.unresolved:
+                        deferred.unresolved.append(dup_id)
+                    continue
+                if dup_video and dup_video.filename not in dups_to_report:
+                    dups_to_report.append(dup_video.filename)
+                    log("duplicate",
+                        f"Match found: {dup_video.filename} ({detail[dup_id]})")
 
     @staticmethod
     def _progress(current_frame: int, total_frames: int, cuts: List[float]) -> float:

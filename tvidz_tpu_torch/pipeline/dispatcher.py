@@ -20,6 +20,13 @@ on a future, and one worker thread runs every queued block in one
 - ``stop()`` fails whatever is still queued, and a submission after stop
   fails at once, so no analysis thread waits forever.
 
+Spans (``utils.timing``): ``dispatch.submit`` (pin and H2D enqueue, on the
+submitting thread); ``dispatch.queue``, one a block from its submission to
+the start of its pass, under the submitter's trace id, which each item
+carries; ``dispatch.pass`` (attrs ``blocks`` and ``traces``, the trace ids
+of its blocks), run under its first block's trace id, and inside it
+``dispatch.pull``, the pass's device-to-host copy.
+
 Blocks are not padded to a power-of-two batch as in the reference: nothing
 compiles per shape here, and a dummy slot would be a wasted K1 launch.
 """
@@ -36,6 +43,7 @@ import torch
 
 from tvidz_tpu_torch.utils import log
 from tvidz_tpu_torch.utils.futures import Future
+from tvidz_tpu_torch.utils.timing import current_trace, record, span, trace
 from tvidz_tpu_torch.pipeline.multistream import warm_dispatch
 
 
@@ -58,6 +66,8 @@ class _Item(NamedTuple):
     future: _Future
     ready: Optional[torch.cuda.Event]   # H2D copy done (CUDA only)
     host: Optional[torch.Tensor]        # the pinned source, kept until used
+    trace: Optional[str]                # the submitter's trace id
+    submitted: float                    # perf_counter at submission
 
 
 class SharedBlockDispatcher:
@@ -125,17 +135,19 @@ class SharedBlockDispatcher:
         if self._stop.is_set():
             fut.fail(RuntimeError("block dispatcher stopped"))
             return fut
-        host = torch.from_numpy(np.ascontiguousarray(buf))
-        ready = None
-        if self._copy_stream is not None:
-            host = host.pin_memory()
-            with torch.cuda.stream(self._copy_stream):
-                luma = host.to(self.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-        else:
-            luma = host.to(self.device)
-        self._q.put(_Item(luma, carry, int(valid_t), fut, ready, host))
+        with span("dispatch.submit"):
+            host = torch.from_numpy(np.ascontiguousarray(buf))
+            ready = None
+            if self._copy_stream is not None:
+                host = host.pin_memory()
+                with torch.cuda.stream(self._copy_stream):
+                    luma = host.to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(self._copy_stream)
+            else:
+                luma = host.to(self.device)
+            self._q.put(_Item(luma, carry, int(valid_t), fut, ready, host,
+                              current_trace(), time.perf_counter()))
         if self._stop.is_set():
             # stop() may have drained between the check above and the put.
             self._drain_failed()
@@ -177,7 +189,8 @@ class SharedBlockDispatcher:
             [item.luma for item in batch], [item.carry for item in batch],
             [item.valid_t for item in batch])
         packed = torch.cat([scores.view(torch.int32)[..., None], fps], dim=-1)
-        host = packed.cpu().numpy()                        # (K, T, 1 + words)
+        with span("dispatch.pull"):
+            host = packed.cpu().numpy()                    # (K, T, 1 + words)
         self.passes += 1
         self.blocks += len(batch)
         return [(host[j, :, 0].view(np.float32),
@@ -192,23 +205,30 @@ class SharedBlockDispatcher:
                 continue
             batch = self._take_batch(first)
             self._pass_started = time.monotonic()
+            started = time.perf_counter()
+            for item in batch:
+                record("dispatch.queue", item.submitted, started, item.trace)
             done = []
-            try:
-                done = list(zip(batch, self._run(batch)))
-            except Exception as e:  # noqa: BLE001 — isolate, keep serving
-                log("dispatcher", f"batched pass failed ({len(batch)} "
-                                  f"blocks): {e}; retrying each block alone")
-                if len(batch) == 1:
-                    batch[0].future.fail(e)
-                else:
-                    for item in batch:
-                        try:
-                            done += list(zip([item], self._run([item])))
-                        except Exception as e1:  # noqa: BLE001
-                            log("dispatcher", f"isolated block failed: {e1}")
-                            item.future.fail(e1)
-            finally:
-                self._pass_started = None
+            with trace(first.trace), \
+                    span("dispatch.pass", blocks=len(batch)) as sp:
+                if sp.traced:
+                    sp.note(traces=[item.trace for item in batch])
+                try:
+                    done = list(zip(batch, self._run(batch)))
+                except Exception as e:  # noqa: BLE001 — isolate, keep serving
+                    log("dispatcher", f"batched pass failed ({len(batch)} "
+                                      f"blocks): {e}; retrying each block alone")
+                    if len(batch) == 1:
+                        batch[0].future.fail(e)
+                    else:
+                        for item in batch:
+                            try:
+                                done += list(zip([item], self._run([item])))
+                            except Exception as e1:  # noqa: BLE001
+                                log("dispatcher", f"isolated block failed: {e1}")
+                                item.future.fail(e1)
+                finally:
+                    self._pass_started = None
             # The pass is over (pass_age_s reads 0) before any submitter
             # wakes on its future.
             for item, result in done:

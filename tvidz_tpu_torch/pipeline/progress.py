@@ -9,12 +9,19 @@ JSON state shape here so the frontend works unchanged:
 
 plus framework extensions under non-conflicting keys (fingerprint count,
 stage timings) that old clients simply ignore.
+
+Beside each state, never inside it, the registry keeps when ``finish`` last
+wrote it (``time.perf_counter``) and the trace id of the request that did
+(``utils.timing``), for the SSE stream's ``sse.deliver`` span.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Tuple
+
+from tvidz_tpu_torch.utils.timing import current_trace
 
 
 class AnalysisRegistry:
@@ -24,6 +31,7 @@ class AnalysisRegistry:
     def __init__(self, max_entries: int = 10_000) -> None:
         self._lock = threading.Lock()
         self._results: Dict[str, dict] = {}
+        self._finished: Dict[str, Tuple[float, Optional[str]]] = {}
         self.max_entries = max_entries
 
     def _evict_locked(self) -> None:
@@ -38,6 +46,7 @@ class AnalysisRegistry:
             if v.get("status") in ("done", "error")
         ][:excess]:
             del self._results[key]
+            self._finished.pop(key, None)
 
     # -- write side (analyzer) ----------------------------------------------
 
@@ -52,11 +61,13 @@ class AnalysisRegistry:
                 "original_filename": original_filename,
                 "clean_filename": clean_filename,
             }
+            self._finished.pop(key, None)
             self._evict_locked()
 
     def remove(self, key: str) -> None:
         with self._lock:
             self._results.pop(key, None)
+            self._finished.pop(key, None)
 
     def update(self, key: str, **fields) -> None:
         with self._lock:
@@ -68,6 +79,7 @@ class AnalysisRegistry:
         app.py:293-302 / 303-315)."""
         with self._lock:
             self._results[key] = fields
+            self._finished[key] = (time.perf_counter(), current_trace())
             self._evict_locked()
 
     def get_existing_duplicates(self, key: str) -> List[str]:
@@ -87,6 +99,13 @@ class AnalysisRegistry:
         dict order, so an unpartitioned scan would return a stale restored
         'done' (whose SSE stream then terminates) ahead of an in-flight
         re-analysis of the same name."""
+        return self.lookup_finished(filename)[0]
+
+    def lookup_finished(self, filename: str
+                        ) -> Tuple[Optional[dict],
+                                   Optional[Tuple[float, Optional[str]]]]:
+        """``lookup``'s state, with when ``finish`` wrote it and under which
+        trace id (None before a ``finish``)."""
         # Lazy import (circular with analyzer at module scope), kept
         # OUTSIDE the lock so a first-touch import chain can't block
         # every analyzer update for its duration.
@@ -94,18 +113,24 @@ class AnalysisRegistry:
 
         _, clean = extract_filenames(filename)
         with self._lock:
-            if filename in self._results:
-                return dict(self._results[filename])
-            for key, data in self._results.items():
-                if (not str(key).startswith("restored_")
-                        and isinstance(data, dict)
-                        and data.get("original_filename") == filename):
-                    return dict(data)
-            for key, data in self._results.items():
-                if (str(key).startswith("restored_")
-                        and isinstance(data, dict)
-                        and data.get("clean_filename") == clean):
-                    return dict(data)
+            key = self._find_locked(filename, clean)
+            if key is None:
+                return None, None
+            return dict(self._results[key]), self._finished.get(key)
+
+    def _find_locked(self, filename: str, clean: str) -> Optional[str]:
+        if filename in self._results:
+            return filename
+        for key, data in self._results.items():
+            if (not str(key).startswith("restored_")
+                    and isinstance(data, dict)
+                    and data.get("original_filename") == filename):
+                return key
+        for key, data in self._results.items():
+            if (str(key).startswith("restored_")
+                    and isinstance(data, dict)
+                    and data.get("clean_filename") == clean):
+                return key
         return None
 
     def snapshot(self) -> Dict[str, dict]:

@@ -25,10 +25,23 @@ plus the framework's extensions: GET /healthz, GET /metrics, GET /,
 GET /thumbnails/<id>, POST /upload/<key>, GET /upload-url/<key>,
 POST /search/fragment, POST /search/fragments, POST /search/video and
 POST /admin/evict-host.
+
+Spans (``utils.timing``; ``/metrics`` serves their table as ``spans``): the
+poller's ``poller.receive`` and ``poller.sleep``, and per message
+``queue.age``, from the S3 record's ``eventTime`` to its receipt (none
+without one); an analysis thread's root ``upload`` and its
+``analysis.admit`` (the device-ready wait and the admission semaphore),
+under the upload's decoded key as trace id; ``/search/fragments`` as
+``search.request`` over ``search.read``, the corpus's ``locate`` and
+``search.resolve``, under a per-process request number; ``sse.deliver``,
+from the registry's ``finish`` of a terminal state to the SSE stream
+yielding it, and the counter ``sse.polls``.
 """
 
 from __future__ import annotations
 
+import datetime
+import itertools
 import json
 import os
 import threading
@@ -51,10 +64,32 @@ from tvidz_tpu_torch.pipeline.dispatcher import SharedBlockDispatcher
 from tvidz_tpu_torch.pipeline.progress import AnalysisRegistry
 from tvidz_tpu_torch.service import wsgi
 from tvidz_tpu_torch.utils import log
+from tvidz_tpu_torch.utils.timing import TRACER, count, span, trace
+from tvidz_tpu_torch.utils.timing import record as record_span
 
 App, Request, Response, jsonify = wsgi.App, wsgi.Request, wsgi.Response, wsgi.jsonify
 _STATIC_INDEX = os.path.join(os.path.dirname(wsgi.__file__), "static",
                              "index.html")
+
+
+_SEARCH_IDS = itertools.count(1)
+
+
+def _event_age_start(event: dict, received: float,
+                     received_wall: float) -> Optional[float]:
+    """The ``perf_counter`` time of an S3 record's ``eventTime`` (ISO 8601
+    UTC), given the receipt's ``perf_counter`` and wall-clock times; None
+    without one."""
+    stamp = event.get("eventTime")
+    if not isinstance(stamp, str):
+        return None
+    try:
+        at = datetime.datetime.fromisoformat(stamp.replace("Z", "+00:00"))
+    except ValueError:
+        return None
+    if at.tzinfo is None:
+        at = at.replace(tzinfo=datetime.timezone.utc)
+    return received - (received_wall - at.timestamp())
 
 
 def _cors(resp: Response) -> Response:
@@ -220,19 +255,25 @@ class InspectorApp:
         return t
 
     def _run_analysis(self, bucket: str, key: str) -> None:
+        with trace(key), span("upload"):
+            self._admit_and_analyze(bucket, key)
+
+    def _admit_and_analyze(self, bucket: str, key: str) -> None:
         try:
-            # Wait until the entrypoint has built the kernels and warmed the
-            # device; events accepted during warm-up start right after.
-            while not self._device_ready_evt.wait(timeout=1.0):
-                if self._stop.is_set():
-                    return
-            # Decoder admission: more concurrent decoders than cores only
-            # thrash (see config). Queued analyses stay 'pending' — the
-            # reference-compatible eventually-processed contract.
-            if self._analysis_slots is not None:
-                while not self._analysis_slots.acquire(timeout=1.0):
+            with span("analysis.admit"):
+                # Wait until the entrypoint has built the kernels and warmed
+                # the device; events accepted during warm-up start right
+                # after.
+                while not self._device_ready_evt.wait(timeout=1.0):
                     if self._stop.is_set():
                         return
+                # Decoder admission: more concurrent decoders than cores
+                # only thrash (see config). Queued analyses stay 'pending' —
+                # the reference-compatible eventually-processed contract.
+                if self._analysis_slots is not None:
+                    while not self._analysis_slots.acquire(timeout=1.0):
+                        if self._stop.is_set():
+                            return
             try:
                 self._run_analysis_admitted(bucket, key)
             finally:
@@ -560,66 +601,8 @@ class InspectorApp:
             "top_k": int}. On a mesh service this runs 2D-parallel
             (queries over the data axis x corpus videos over the corpus
             axis, MeshCorpus.locate_fragments)."""
-            if not self.device_ready:
-                return jsonify({"error": "service warming up"}, 503)
-            body = request.get_json(silent=True) or {}
-            queries = body.get("queries")
-            if not isinstance(queries, list) or not queries:
-                return jsonify({"error": "queries list required"}, 400)
-            try:
-                top_k = int(body.get("top_k", 5))
-            except (TypeError, ValueError):
-                return jsonify({"error": "top_k must be an integer"}, 400)
-            frags, excls, metas = [], [], []
-            for spec in queries:
-                filename = (spec or {}).get("filename")
-                if not filename:
-                    return jsonify({"error": "filename required"}, 400)
-                video = self.store.get_video_by_filename(filename)
-                if video is None:
-                    return jsonify(
-                        {"error": f"unknown video {filename}"}, 404)
-                fps = self.store.get_fingerprints(video.id)
-                if fps is None or fps.shape[0] == 0:
-                    return jsonify(
-                        {"error": f"no fingerprints for {filename}"}, 404)
-                try:
-                    start = int(spec.get("start_frame", 0))
-                    num = int(spec.get("num_frames", min(64, fps.shape[0])))
-                except (TypeError, ValueError):
-                    return jsonify(
-                        {"error": "start_frame/num_frames must be integers"},
-                        400)
-                if start < 0 or num <= 0:
-                    return jsonify(
-                        {"error": "start_frame must be >= 0, num_frames > 0"},
-                        400)
-                frag = fps[start : start + num]
-                if frag.shape[0] == 0:
-                    return jsonify({"error": "empty fragment span"}, 400)
-                frags.append(frag)
-                excls.append(
-                    video.id if spec.get("exclude_self", True) else None)
-                metas.append((filename, start, int(frag.shape[0])))
-            batch = self.corpus.locate_fragments(
-                frags, top_k=top_k, exclude_video_ids=excls)
-            out = []
-            for (filename, start, nf), hits in zip(metas, batch):
-                resolved = []
-                for vid, offset, score in hits:
-                    v = self.store.get_video_by_id(vid)
-                    resolved.append({
-                        "video_id": vid,
-                        "filename": v.filename if v else None,
-                        "offset_frames": offset,
-                        "match_count": score,
-                        "fragment_frames": nf,
-                    })
-                out.append({"query": {"filename": filename,
-                                      "start_frame": start,
-                                      "num_frames": nf},
-                            "matches": resolved})
-            return jsonify({"results": out})
+            with trace(f"search-{next(_SEARCH_IDS)}"), span("search.request"):
+                return self._search_fragments(request)
 
         @app.route("/search/video", methods=["POST"])
         def search_video(request: Request):
@@ -719,6 +702,8 @@ class InspectorApp:
                 # service became ready (the entrypoint zeroes them then).
                 "kernel_launches": {k.name: k.launches
                                     for k in backend.KERNELS},
+                # The port's spans and counters (utils/timing.py), process-wide.
+                "spans": TRACER.summary(),
             }
             # Device-resident index footprint + sync accounting (churn
             # hygiene observable); absent on corpus variants without it.
@@ -784,6 +769,70 @@ class InspectorApp:
 
         return app
 
+    def _search_fragments(self, request: Request) -> Response:
+        if not self.device_ready:
+            return jsonify({"error": "service warming up"}, 503)
+        body = request.get_json(silent=True) or {}
+        queries = body.get("queries")
+        if not isinstance(queries, list) or not queries:
+            return jsonify({"error": "queries list required"}, 400)
+        try:
+            top_k = int(body.get("top_k", 5))
+        except (TypeError, ValueError):
+            return jsonify({"error": "top_k must be an integer"}, 400)
+        frags, excls, metas = [], [], []
+        with span("search.read"):
+            for spec in queries:
+                filename = (spec or {}).get("filename")
+                if not filename:
+                    return jsonify({"error": "filename required"}, 400)
+                video = self.store.get_video_by_filename(filename)
+                if video is None:
+                    return jsonify(
+                        {"error": f"unknown video {filename}"}, 404)
+                fps = self.store.get_fingerprints(video.id)
+                if fps is None or fps.shape[0] == 0:
+                    return jsonify(
+                        {"error": f"no fingerprints for {filename}"}, 404)
+                try:
+                    start = int(spec.get("start_frame", 0))
+                    num = int(spec.get("num_frames", min(64, fps.shape[0])))
+                except (TypeError, ValueError):
+                    return jsonify(
+                        {"error": "start_frame/num_frames must be integers"},
+                        400)
+                if start < 0 or num <= 0:
+                    return jsonify(
+                        {"error": "start_frame must be >= 0, num_frames > 0"},
+                        400)
+                frag = fps[start : start + num]
+                if frag.shape[0] == 0:
+                    return jsonify({"error": "empty fragment span"}, 400)
+                frags.append(frag)
+                excls.append(
+                    video.id if spec.get("exclude_self", True) else None)
+                metas.append((filename, start, int(frag.shape[0])))
+        batch = self.corpus.locate_fragments(
+            frags, top_k=top_k, exclude_video_ids=excls)
+        out = []
+        with span("search.resolve"):
+            for (filename, start, nf), hits in zip(metas, batch):
+                resolved = []
+                for vid, offset, score in hits:
+                    v = self.store.get_video_by_id(vid)
+                    resolved.append({
+                        "video_id": vid,
+                        "filename": v.filename if v else None,
+                        "offset_frames": offset,
+                        "match_count": score,
+                        "fragment_frames": nf,
+                    })
+                out.append({"query": {"filename": filename,
+                                      "start_frame": start,
+                                      "num_frames": nf},
+                            "matches": resolved})
+        return jsonify({"results": out})
+
     # -- SSE --------------------------------------------------------------------------
 
     def _lookup_state(self, filename: str) -> Optional[dict]:
@@ -838,7 +887,8 @@ class InspectorApp:
         last_status = last_progress = None
         last_cuts_len = last_dups_len = None
         while True:
-            result = self.registry.lookup(filename)
+            count("sse.polls")
+            result, finished = self.registry.lookup_finished(filename)
             if not result and self.config.service.status_store_fallback:
                 now_t = time.time()
                 if now_t - last_store_check >= store_poll:
@@ -877,8 +927,13 @@ class InspectorApp:
                 last_status, last_progress = status, progress
                 last_cuts_len, last_dups_len = cuts_len, dups_len
                 data = result if result else {"status": "pending"}
-                yield f"data: {json.dumps(data)}\n\n"
-                if status in ("done", "error"):
+                frame = f"data: {json.dumps(data)}\n\n"
+                terminal = status in ("done", "error")
+                if terminal and finished is not None and finished[1] is not None:
+                    record_span("sse.deliver", finished[0],
+                                time.perf_counter(), finished[1])
+                yield frame
+                if terminal:
                     break
             time.sleep(poll)
 
@@ -915,14 +970,17 @@ class InspectorApp:
             return
         while not self._stop.is_set():
             try:
-                messages = self.sqs.receive(
-                    queue_url, wait_s=cfg.sqs_wait_s, max_messages=1
-                )
+                with span("poller.receive"):
+                    messages = self.sqs.receive(
+                        queue_url, wait_s=cfg.sqs_wait_s, max_messages=1
+                    )
             except Exception as e:  # noqa: BLE001
                 log("poll_sqs", f"receive error: {e}")
                 self._poller_stats["receive_errors"] += 1
-                time.sleep(cfg.sqs_idle_sleep_s)
+                with span("poller.sleep"):
+                    time.sleep(cfg.sqs_idle_sleep_s)
                 continue
+            received, received_wall = time.perf_counter(), time.time()
             for msg in messages:
                 processed_successfully = False
                 try:
@@ -932,6 +990,10 @@ class InspectorApp:
                     record = body["Records"][0]
                     bucket = record["s3"]["bucket"]["name"]
                     key = record["s3"]["object"]["key"]
+                    put = _event_age_start(record, received, received_wall)
+                    if put is not None:
+                        record_span("queue.age", put, received,
+                                    self._decode_event_key(key))
                     self.start_analysis_thread(bucket, key)
                     processed_successfully = True
                     self._poller_stats["processed"] += 1
@@ -947,7 +1009,8 @@ class InspectorApp:
                             # message later; it must NOT kill the poller.
                             log("poll_sqs", f"delete failed (will redeliver): {e}")
                             self._poller_stats["receive_errors"] += 1
-            self._stop.wait(cfg.sqs_idle_sleep_s)
+            with span("poller.sleep"):
+                self._stop.wait(cfg.sqs_idle_sleep_s)
 
 
 def create_app(

@@ -8,6 +8,7 @@ upload -> event -> analysis -> verdict path runs hermetically.
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
 import queue
@@ -66,9 +67,14 @@ class FakeS3:
         # with unquote_plus (app.py _decode_event_key). Emitting the raw key
         # here would corrupt names containing '%' or '+' on the fake path.
         encoded_key = urllib.parse.quote_plus(key, safe="/")
+        # Real S3 stamps each record with its event time, ISO 8601 UTC to
+        # the millisecond ("2026-10-17T23:06:39.123Z").
+        now = datetime.datetime.now(datetime.timezone.utc)
         event = {
             "Records": [
-                {"s3": {"bucket": {"name": bucket},
+                {"eventTime": now.strftime("%Y-%m-%dT%H:%M:%S.")
+                              + f"{now.microsecond // 1000:03d}Z",
+                 "s3": {"bucket": {"name": bucket},
                         "object": {"key": encoded_key}}}
             ]
         }
