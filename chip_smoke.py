@@ -131,6 +131,15 @@ PHASH256_WORDS = 8
 BIG_M = (16_385, 40_000)                    # queries past one launch
 LONG_VIDEO_FRAMES = 16_500                  # a /search/video past one launch
 K3_WIDE_THRS = (0, 40, 100)
+# K3 at W = 8 with four queries against enough videos that the tiles plan
+# gives one CTA all four (q_group 4), as the fragment-search cell runs it.
+K3_W8_GROUP = (4, 768, 256, 1024)
+# K3 at the fragment-search cell's per-request shape: four spans across the
+# cell's log-uniform 256 .. 1,024 frames (mean 603; the cell's, ~550).
+K3_REQUEST_SPANS = (256, 431, 702, 1024)
+# Videos of each bucket of that request held against the plain version
+# (all 64 sources; the catalog's first 64, which hold its planted spans).
+K3_REQUEST_PLAIN_VIDEOS = 64
 SCORE_TOL = 1e-6        # mafd sums are integer-exact: bit-equal expected
 HASH_BITS_TOL = 2       # f32 sums in another order (tests/test_ops_phash.py)
 # The carried mafd is unscaled (up to 255). K1 divides the exact sum by
@@ -998,33 +1007,40 @@ def check_fragment_search(dev):
 
 
 def check_k3_wide(dev) -> float:
-    """K3 at W = 8 (phash256) at shape (a): the planted fragments and
-    thresholds K3_WIDE_THRS, and a bucket of identical rows, each equal to
-    the plain version."""
+    """K3 at W = 8 (phash256) at shape (a) and at K3_W8_GROUP (one CTA for
+    all four queries of a video, the plan asserted): the planted fragments
+    and thresholds K3_WIDE_THRS, and a bucket of identical rows, each equal
+    to the plain version."""
     import torch
 
     from tvidz_tpu_torch.ops import align
 
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = align.k3_tiles_plan(*K3_W8_GROUP, PHASH256_WORDS, n_sm)
+    check(plan[2] == K3_W8_GROUP[0],
+          f"K3 at W=8: the plan {plan} at {K3_W8_GROUP} does not group the queries")
     err, checked = 0, []
-    (qs, q_lens, corpus, lens), plants = fragment_inputs(
-        dev, FRAG_A, SEED + 3, PHASH256_WORDS)
-    dense_c, dense_q = dense_inputs(corpus, qs)
-    for name, q_, c_, thr in ([(f"thr{t}", qs, corpus, t) for t in K3_WIDE_THRS]
-                              + [("dense", dense_q, dense_c, FRAG_THR)]):
-        got = align.fragment_search_batch(q_, q_lens, c_, lens, thr)
-        want = align.fragment_search_batch_plain(q_, q_lens, c_, lens, thr)
-        torch.cuda.synchronize()
-        err = max(err, *((g - w).abs().max().item() for g, w in zip(got, want)))
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"K3 at W=8 differs from the plain version at {name}")
-        if name == "thr40":
-            for q, (row, off, n) in enumerate(plants):
-                check(int(got[1][q, row]) == n and int(got[0][q, row]) == off,
-                      f"K3 at W=8 missed the planted fragment of query {q}")
-        checked.append({"case": name, "threshold": thr,
-                        "max_score": int(got[1].max())})
-    phase("k3_w8", words=PHASH256_WORDS, shape=list(FRAG_A), max_abs_err=err,
-          exact=True, cases=checked)
+    for label, shape in (("a", FRAG_A), ("group", K3_W8_GROUP)):
+        (qs, q_lens, corpus, lens), plants = fragment_inputs(
+            dev, shape, SEED + 3, PHASH256_WORDS)
+        dense_c, dense_q = dense_inputs(corpus, qs)
+        for name, q_, c_, thr in ([(f"thr{t}", qs, corpus, t) for t in K3_WIDE_THRS]
+                                  + [("dense", dense_q, dense_c, FRAG_THR)]):
+            got = align.fragment_search_batch(q_, q_lens, c_, lens, thr)
+            want = align.fragment_search_batch_plain(q_, q_lens, c_, lens, thr)
+            torch.cuda.synchronize()
+            err = max(err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"K3 at W=8 differs from the plain version at ({label}) {name}")
+            if name == "thr40":
+                for q, (row, off, n) in enumerate(plants):
+                    check(int(got[1][q, row]) == n and int(got[0][q, row]) == off,
+                          f"K3 at W=8 missed the planted fragment of query {q} "
+                          f"at ({label})")
+            checked.append({"shape": label, "case": name, "threshold": thr,
+                            "max_score": int(got[1].max())})
+    phase("k3_w8", words=PHASH256_WORDS, shapes=[list(FRAG_A), list(K3_W8_GROUP)],
+          group_plan=list(plan), max_abs_err=err, exact=True, cases=checked)
     return float(err)
 
 
@@ -1066,8 +1082,13 @@ RACE_K4 = (("m128_2^20", 128, SCAN_N), ("m128_2^24", 128, 1 << 24),
 # T and geometry), from a mid-stream carry.
 RACE_K1 = (("t128", FRAMES, HEIGHT, WIDTH), ("t2^17", K1_VALUE_FRAMES, HEIGHT, WIDTH),
            *K1_TIMED_GEOMETRIES)
-# K3 at the three parity shapes and on the bucket of identical rows.
-RACE_K3 = (("a", FRAG_A), ("b", FRAG_B), ("c", FRAG_C), ("a_dense", FRAG_A))
+# K3 (label, shape, words) at the three parity shapes and on the bucket of
+# identical rows, then at one W of each instance of the tiles form (N = 256,
+# 256, 128, 64) at shape (a) and at K3_WIDER_SHAPE.
+RACE_K3_WORDS = (3, 8, 12, 23)
+RACE_K3 = (("a", FRAG_A, 2), ("b", FRAG_B, 2), ("c", FRAG_C, 2), ("a_dense", FRAG_A, 2),
+           *((f"a_w{w}", FRAG_A, w) for w in RACE_K3_WORDS),
+           *((f"small_w{w}", K3_WIDER_SHAPE, w) for w in RACE_K3_WORDS))
 
 
 def digest(outs) -> str:
@@ -1157,8 +1178,8 @@ def measure_arm(root: str, dump: str) -> dict:
                 lambda: hamming.corpus_scan_tc(qq, cc, mode),
                 20 if n == SCAN_N else 5)
     del big
-    for name, shape in RACE_K3:
-        (qs, ql, c, ln), _ = fragment_inputs(dev, shape, SEED + 3)
+    for name, shape, words in RACE_K3:
+        (qs, ql, c, ln), _ = fragment_inputs(dev, shape, SEED + 3, words)
         if name == "a_dense":
             c, qs = dense_inputs(c, qs)
         rows[f"K3 {name}"] = timed(
@@ -1681,8 +1702,13 @@ def drive_family(work: str, env: dict, words: int, tag: str,
     check(launches[fused.K1.name] == 0,
           f"{tag}: {launches[fused.K1.name]} K1 launches (the family's "
           "composition launches none)")
+    k3_forms = dict(align.K3.form_launches)
+    check(k3_forms == {align.k3_form(words): launches[align.K3.name]},
+          f"{tag}: K3 launches by form {k3_forms}, all {launches[align.K3.name]} "
+          f"expected in the {align.k3_form(words)!r} form")
     return launches, dict(
-        words=words, launches=launches, corpus_fingerprints=n_fp + 560,
+        words=words, launches=launches, k3_forms=k3_forms,
+        corpus_fingerprints=n_fp + 560,
         prefill_s=prefill_s, renamed_copy=res["duplicates"],
         fresh_duplicates=fresh["duplicates"], search_top_alignment=top,
         cli_s=cli_s, fragment_top=frag["matches"][0], search_fragment_s=fragment_s,
@@ -2769,6 +2795,66 @@ def k1_timed_row(dev, gen, frames: int, h: int, w: int) -> dict:
             "frames_not_bit_identical_vs_golden": int((vs_golden > 0).sum())}
 
 
+def align_bound_ms(q_lens, lens, words: int) -> float:
+    """``perfbench/peaks.align_bound_s`` of a K3 call's real query and video
+    lengths, in ms: the yardstick of the benchmark's ``k3_roofline``."""
+    from perfbench import peaks
+
+    return peaks.align_bound_s(q_lens.tolist(), lens.tolist(), words) * 1e3
+
+
+def time_k3_request(dev) -> dict:
+    """K3 at W = 8 at the fragment-search cell's per-request shape: Q = 4
+    spans of K3_REQUEST_SPANS frames (one Tq_pad) against its two buckets,
+    4,080 catalog videos of 4,096 frames and 64 sources of 1,024, each
+    launch's device time beside its bound; the two together are one
+    request's K3. Random rows with a planted span a query, each found whole
+    at its offset; the sources bucket and the catalog's first
+    K3_REQUEST_PLAIN_VIDEOS videos equal to the plain version."""
+    import torch
+
+    from tvidz_tpu_torch.ops import align
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    w = PHASH256_WORDS
+    tq_pad = -(-max(K3_REQUEST_SPANS) // 64) * 64
+    ql = torch.tensor(K3_REQUEST_SPANS, dtype=torch.int32, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out, total_ms, total_bound = {}, 0.0, 0.0
+    for name, (v, tc) in (("catalog", (4080, 4096)), ("sources", (64, 1024))):
+        c = torch.randint(-2 ** 31, 2 ** 31, (v, tc, w), dtype=torch.int32,
+                          device=dev, generator=gen)
+        ln = torch.full((v,), tc, dtype=torch.int32, device=dev)
+        qs = torch.randint(-2 ** 31, 2 ** 31, (4, tq_pad, w), dtype=torch.int32,
+                           device=dev, generator=gen)
+        for q, n in enumerate(K3_REQUEST_SPANS):
+            qs[q, :n] = c[(17 * q + 3) % v, tc - n:]
+        fn = lambda: align.fragment_search_batch(qs, ql, c, ln, FRAG_THR)  # noqa: E731
+        ms = device_ms(fn, 5)
+        ko, ks = fn()
+        for q, n in enumerate(K3_REQUEST_SPANS):
+            row = (17 * q + 3) % v
+            check(int(ks[q, row]) == n and int(ko[q, row]) == tc - n,
+                  f"K3 request ({name}): query {q} at video {row} read "
+                  f"{int(ko[q, row])}, {int(ks[q, row])} != {tc - n}, {n}")
+        k = min(v, K3_REQUEST_PLAIN_VIDEOS)
+        po, ps = align.fragment_search_batch_plain(qs, ql, c[:k], ln[:k], FRAG_THR)
+        check(torch.equal(ko[:, :k], po) and torch.equal(ks[:, :k], ps),
+              f"K3 request ({name}): the first {k} videos differ from the "
+              f"plain version")
+        b = align_bound_ms(ql, ln, w)
+        out[name] = {"shape": [4, tq_pad, v, tc], "device_ms": ms, "align_bound_ms": b,
+                     "plain_checked_videos": k,
+                     "roofline_pct": 100.0 * b / ms,
+                     "plan": align.k3_tiles_plan(4, tq_pad, v, tc, w, n_sm)}
+        total_ms, total_bound = total_ms + ms, total_bound + b
+        del c
+    out.update(spans=list(K3_REQUEST_SPANS), device_ms=total_ms,
+               align_bound_ms=total_bound, roofline_pct=100.0 * total_bound / total_ms)
+    return out
+
+
 def time_kernels(dev) -> dict:
     """K1-K4 at the main path's shapes (K1 also at the bench's 2^17-frame
     single-dispatch shape): per call by CUDA events, interleaved
@@ -2880,8 +2966,11 @@ def time_kernels(dev) -> dict:
     dc8, dq8 = dense_inputs(c8, qs8)
     k3_w8 = {"shape": list(FRAG_A), "ms": ms, "plain_ms": plain_ms,
              "device_ms": device_ms(fn, 10), "bound_ms": b[0], "bound_by": b[1],
+             "align_bound_ms": align_bound_ms(ql8, ln8, PHASH256_WORDS),
              "dense_device_ms": device_ms(
                  lambda: align.fragment_search_batch(dq8, ql8, dc8, ln8, FRAG_THR), 5)}
+    del c8, dc8
+    k3_w8_request = time_k3_request(dev)
     # K4, K2 and K3 at the widths they walk in word chunks (and W = 26 and
     # 32, which K4 holds in one pass and K2 in one chunk). The plain XOR
     # scan is not timed there (seconds a call at W = 128; K2 is off every
@@ -2920,7 +3009,8 @@ def time_kernels(dev) -> dict:
                      "bound_by": bk3[1]}
         wider[words] = row
     return {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_geometries": k1_geo,
-            "k4_w8": k4_w8, "k2_w8": k2_w8, "k3_w8": k3_w8, "wider_words": wider,
+            "k4_w8": k4_w8, "k2_w8": k2_w8, "k3_w8": k3_w8,
+            "k3_w8_request": k3_w8_request, "wider_words": wider,
             "k1_device_ms": sum(k1_items.values()),
             "k1_device_items": sorted(k1_items),
             "k1_grid": fused.fingerprint_grid(FRAMES, HEIGHT, WIDTH),

@@ -10,6 +10,9 @@ Tolerances as in test_torch_fused.py: scores 1e-6, hashes 2 bits per frame,
 median/pack and the scan exact.
 """
 
+import ctypes
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -495,6 +498,99 @@ def test_fragment_search_kernel_w8_matches_plain(dev, thr):
     got = align.fragment_search_batch(dq, args[1], dense, args[3], thr)
     want = align.fragment_search_batch_plain(dq, args[1], dense, args[3], thr)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _u32(dev):
+    return lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)  # noqa: E731
+                                      if a.dtype == np.uint32 else a).to(dev)
+
+
+def test_fragment_search_tiles_at_the_request_shape(dev):
+    """A fragment-search request of the phash256 cell, one launch a bucket:
+    Q = 4 spans of 256-1,024 frames (one Tq_pad) against V = 4,080 videos of
+    4,096 frames and V = 64 of 1,024, threshold 10: planted copies (one
+    damaged by up to 10 bits a frame, one ending at its video's end), still
+    runs (whole-block counts) and a video of one repeated row, every offset
+    and score equal to the plain version's, both launches in the tiles
+    form, one CTA a video for every query of the catalog bucket."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert align.k3_tiles_plan(4, 1024, 4080, 4096, 8, n_sm)[1:5] == (5119, 4, 1, 1)
+    rng = np.random.default_rng(15)
+    words, thr = 8, 10
+    q_lens = np.asarray([256, 431, 702, 1024], np.int32)
+    cat = rng.integers(0, 2 ** 32, size=(4080, 4096, words), dtype=np.uint32)
+    src = rng.integers(0, 2 ** 32, size=(64, 1024, words), dtype=np.uint32)
+    still = cat[0, 0].copy()
+    for v in range(3, 4080, 17):                     # static scenes
+        a = int(rng.integers(0, 3800))
+        cat[v, a:a + int(rng.integers(80, 300))] = still
+    cat[11] = still
+    qs = np.zeros((4, 1024, words), np.uint32)
+    qs[0, :256] = cat[5, 1000:1256]
+    flips = rng.integers(0, 32, size=(256, 10))       # up to 10 bits a frame
+    for t in range(0, 256, 3):
+        for b in flips[t, : t % 11]:
+            qs[0, t, b % words] ^= np.uint32(1 << int(b))
+    qs[1, :431] = cat[4000, 4096 - 431:]
+    qs[2, :702] = still
+    qs[2, 300:400] = src[9, :100]
+    qs[3, :1024] = src[7]
+    cat_lens = np.full(4080, 4096, np.int32)
+    cat_lens[20] = 1000
+    src_lens = np.full(64, 1024, np.int32)
+    t = _u32(dev)
+    args_q = (t(qs), t(q_lens))
+    before = align.K3.form_launches["tiles"]
+    for corpus, lens in ((cat, cat_lens), (src, src_lens)):
+        c, ln = t(corpus), t(lens)
+        ko, ks = align.fragment_search_batch(*args_q, c, ln, thr)
+        po, ps = align.fragment_search_batch_plain(*args_q, c, ln, thr)
+        assert torch.equal(ko, po) and torch.equal(ks, ps)
+        del c
+    assert align.K3.form_launches["tiles"] == before + 2
+    assert int(ks[3, 7]) == 1024 and int(ko[3, 7]) == 0
+
+
+@pytest.mark.parametrize("words", [3, 8, 23])
+@pytest.mark.parametrize("thr_of", [lambda w: 0, lambda w: 10, lambda w: 32 * w],
+                         ids=["thr0", "thr10", "thr32w"])
+def test_fragment_search_tiles_matches_plain(dev, words, thr_of):
+    """The tiles form at W = 3, 8, 23 (N = 256, 256, 64): planted fragments,
+    a periodic row (tied maxima), still runs beside random rows and a
+    bucket of identical rows (the whole-block counts), a short and an
+    empty video, queries of three lengths padded to one Tq_pad; few
+    videos, so the plan cuts the diagonals into bands."""
+    thr = thr_of(words)
+    rng = np.random.default_rng(words + thr)
+    v, tc, tq_pad = 37, 1024, 320
+    corpus = rng.integers(0, 2 ** 32, size=(v, tc, words), dtype=np.uint32)
+    lens = np.full(v, tc, np.int32)
+    lens[3], lens[4], lens[8] = 100, 0, 1000
+    corpus[5] = np.resize(corpus[5, :50], (tc, words))
+    corpus[7, 40:300] = corpus[7, 40]
+    corpus[9, 700:] = corpus[7, 40]
+    qs = rng.integers(0, 2 ** 32, size=(3, tq_pad, words), dtype=np.uint32)
+    qlens = np.asarray([320, 200, 77], np.int32)
+    qs[0, :300] = corpus[9, 500:800]
+    qs[0, ::4, 0] ^= np.uint32(0b1011)
+    qs[1, :200] = corpus[5, 20:220]
+    qs[2, :77] = corpus[7, 40]
+    t = _u32(dev)
+    args = [t(a) for a in (qs, qlens, corpus, lens)]
+    _, band, _, bands, _, _ = align.k3_tiles_plan(
+        3, tq_pad, v, tc, words,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert bands > 1 and band < tq_pad + tc - 1
+    before = align.K3.form_launches["tiles"]
+    ko, ks = align.fragment_search_batch(*args, thr)
+    po, ps = align.fragment_search_batch_plain(*args, thr)
+    assert torch.equal(ko, po) and torch.equal(ks, ps)
+    dense = t(np.broadcast_to(corpus[0, 0], corpus.shape).copy())
+    dq = t(np.broadcast_to(corpus[0, 0], qs.shape).copy())
+    got = align.fragment_search_batch(dq, args[1], dense, args[3], thr)
+    want = align.fragment_search_batch_plain(dq, args[1], dense, args[3], thr)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert align.K3.form_launches["tiles"] == before + 2
 
 
 def test_phash256_analyze_on_the_card(dev, monkeypatch):

@@ -6,15 +6,25 @@ These models repeat, step by step, how each kernel splits its work, so
 that a fault in the split (a band that misses a diagonal, a tie broken by
 the wrong CTA, a ring slot overwritten too early) shows here without one:
 
-- K3 (``csrc/fragment_search.cu``): offset bands of 128, 64-row query tiles
-  whose first one starts where its window row 0 is a multiple of 64, a
-  256-row ring of unpacked corpus rows that slides by 64 rows a tile and
-  is read in 64-row pieces that never wrap, the threshold as
-  dot >= 32 W - 2 thr, validity checked for matched pairs only, a warp's
-  16 x 64 block that matched whole counted once per band inside the valid
-  rows and by interval ends at their edges, a per-band
-  first-index argmax and the bands combined by the maximum 64-bit key; at
-  W = 2 (the 64-bit pHash) and W = 8 (phash256).
+- K3 (``csrc/fragment_search.cu``) at W = 2 (the 64-bit pHash): offset
+  bands of 128, 64-row query tiles whose first one starts where its window
+  row 0 is a multiple of 64, a 256-row ring of unpacked corpus rows that
+  slides by 64 rows a tile and is read in 64-row pieces that never wrap,
+  the threshold as dot >= 32 W - 2 thr, validity checked for matched pairs
+  only, a warp's 16 x 64 block that matched whole counted once per band
+  inside the valid rows and by interval ends at their edges, a per-band
+  first-index argmax and the bands combined by the maximum 64-bit key.
+- K3's tiles form (W = 1 and 3 to 23; phash256's W = 8): the plan's CTAs
+  (video, band of diagonals, group of queries; ``align.k3_tiles_plan``),
+  corpus tiles of N rows from a multiple of N over the rows the band
+  touches, zero past the video's length, each unpacked once a CTA; per
+  tile the 64-row query tiles of each query that touch the band, in
+  order, taken by two warpgroups in turn; a warp's 16 x N block gated on
+  its largest dot and then by 16 x 64 quarters, one that matched whole
+  adding its trapezoid clipped to the valid rows and one that matched in
+  part adding each matched pair inside the band and the valid rows; per
+  query the CTA's maximum at its first diagonal, the CTAs combined by the
+  maximum 64-bit key.
 - K4 (``csrc/corpus_scan_tc.cu``): contiguous per-CTA ranges of 256-row
   tiles walked in ascending order, query chunks of 128, the rows each
   thread holds, rows past N masked (dot -32 W), per thread and query a
@@ -51,6 +61,9 @@ Tolerance: exact (integer counts and indices; K1's scores and carries),
 and K1's hashes within 2 bits of the plain version's (float32 sums in
 another order, tests/test_torch_fused.py).
 """
+
+import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -177,6 +190,110 @@ def k3_model(qs, q_lens, corpus, lens, thr, band=128, tile=64, ring=256,
     return offs, scores
 
 
+def k3_tiles_walk(q_lens, tq_pad, lens, tc, rows, band, q_group):
+    """K3's tiles form's CTAs in its grid, (v, d0, d1, queries, tiles),
+    each tile (j0, items) with its items (query, t0) in the order the two
+    warpgroups take them in turn: corpus tiles of ``rows`` rows from a
+    multiple of ``rows`` over the rows the band's pairs touch, and per tile
+    each query's 64-row tiles that touch the band."""
+    nq, nd = len(q_lens), tq_pad + tc - 1
+    for v, b, gq in np.ndindex(len(lens), -(-nd // band), -(-nq // q_group)):
+        d0 = b * band
+        d1 = min(nd, d0 + band)
+        o0, o1 = d0 - (tq_pad - 1), d1 - tq_pad
+        queries = range(gq * q_group, min(nq, (gq + 1) * q_group))
+        c_len = min(max(int(lens[v]), 0), tc)
+        ql = {q: min(max(int(q_lens[q]), 0), tq_pad) for q in queries}
+        q_max = max(ql.values())
+        j_lo, j_hi = max(0, o0), min(c_len, q_max + o1)
+        if q_max == 0 or j_lo >= j_hi:
+            continue
+        tiles = []
+        for j0 in range(j_lo - j_lo % rows, j_hi, rows):
+            items = []
+            for q in queries:
+                t_lo, t_hi = max(0, j0 - o1), min(ql[q], j0 - o0 + rows)
+                items += [(q, t0) for t0 in range(t_lo - t_lo % 64, t_hi, 64)]
+            tiles.append((j0, items))
+        yield v, d0, d1, list(queries), tiles
+
+
+def k3_tiles_model(qs, q_lens, corpus, lens, thr, n_sm=132, plan=None,
+                   stats=None):
+    """(Q, V) offsets and scores as K3's tiles form computes them, with the
+    plan ``align.k3_tiles_plan`` gives on ``n_sm`` SMs or ``plan`` = (band,
+    q_group) given. ``stats`` counts pairs multiplied, corpus rows unpacked,
+    items a warpgroup, and warp quarters (16 x 64) taken whole and pair by
+    pair."""
+    stats = {} if stats is None else stats
+    for k in ("pairs", "unpacked", "whole", "pairwise", "items_wg0", "items_wg1"):
+        stats.setdefault(k, 0)
+    nq, tq_pad, words = qs.shape
+    nv, tc, _ = corpus.shape
+    bits = 32 * words
+    thr = min(max(thr, -1), bits)
+    thr_dot = bits - 2 * thr
+    rows, band, qg, _, _, _ = align.k3_tiles_plan(nq, tq_pad, nv, tc, words, n_sm)
+    if plan is not None:
+        band, qg = plan
+    # float32 products: exact, |dot| <= 32 W <= 736.
+    q_pm1, c_pm1 = _pm1(qs).astype(np.float32), _pm1(corpus).astype(np.float32)
+    ql = [min(max(int(n), 0), tq_pad) for n in q_lens]
+    keys = np.full((nq, nv), _ZERO_KEY, dtype=object)
+    rr, cc = np.meshgrid(np.arange(64), np.arange(rows), indexing="ij")
+    for v, d0, d1, queries, tiles in k3_tiles_walk(q_lens, tq_pad, lens, tc,
+                                                   rows, band, qg):
+        c_len = min(max(int(lens[v]), 0), tc)
+        cnt = {q: np.zeros(d1 - d0, np.int64) for q in queries}
+        item = 0
+        for j0, items in tiles:
+            # The ring stage: rows j0 .. j0 + N - 1, zero past c_len.
+            stage = np.zeros((rows, bits), np.float32)
+            n = min(rows, c_len - j0)
+            stage[:n] = c_pm1[v, j0:j0 + n]
+            stats["unpacked"] += rows
+            for q, t0 in items:
+                stats[f"items_wg{item % 2}"] += 1
+                item += 1
+                a = np.zeros((64, bits), np.float32)
+                m = max(0, min(64, ql[q] - t0))
+                a[:m] = q_pm1[q, t0:t0 + m]
+                matched = a @ stage.T >= thr_dot
+                stats["pairs"] += 64 * rows
+                base = j0 - t0 + (tq_pad - 1) - d0
+                # Per warp, a 16 x N block by 16 x 64 quarters.
+                for wq, p in np.ndindex(4, rows // 64):
+                    r0, c0 = 16 * wq, 64 * p
+                    blk = matched[r0:r0 + 16, c0:c0 + 64]
+                    if not blk.any():              # the warp vote's skip
+                        continue
+                    if blk.all():
+                        stats["whole"] += 1
+                        r_hi = min(r0 + 16, ql[q] - t0)
+                        c_hi = min(c0 + 64, c_len - j0)
+                        for x in range(c0 - r_hi + 1, c_hi - r0):
+                            k = min(r_hi, c_hi - x) - max(r0, c0 - x)
+                            if 0 <= base + x < d1 - d0 and k > 0:
+                                cnt[q][base + x] += k
+                    else:
+                        stats["pairwise"] += 1
+                        sub = (slice(r0, r0 + 16), slice(c0, c0 + 64))
+                        r, c = rr[sub], cc[sub]
+                        dd = base + c - r
+                        ok = (blk & (dd >= 0) & (dd < d1 - d0)
+                              & (t0 + r < ql[q]) & (j0 + c < c_len))
+                        np.add.at(cnt[q], dd[ok], 1)
+        for q in queries:
+            best = int(cnt[q].max())
+            if best > 0:
+                d = d0 + int(np.argmax(cnt[q]))         # first index
+                keys[q, v] = max(keys[q, v], (best << 32) | (0x7FFFFFFF - d))
+    scores = np.array([[k >> 32 for k in row] for row in keys], np.int32)
+    offs = np.array([[(0x7FFFFFFF - (k & 0xFFFFFFFF)) - (tq_pad - 1)
+                      for k in row] for row in keys], np.int32)
+    return offs, scores
+
+
 def _k3_case(name, seed=3, words=2):
     """(qs, q_lens, corpus, lens, thr) of one named case."""
     rng = np.random.default_rng(seed)
@@ -246,10 +363,10 @@ def test_k3_decomposition_equals_plain(name):
                                       ("thr40", 40), ("thr40", 100),
                                       ("identical", 10), ("static_runs", 10)])
 def test_k3_decomposition_equals_plain_w8(name, thr):
-    """The same decomposition at W = 8 (phash256): 256-term dots, the
-    threshold at 256 - 2 thr."""
+    """K3's tiles form at W = 8 (phash256): 256-term dots, the threshold at
+    256 - 2 thr, the plan's own CTAs (one band, a query a CTA here)."""
     qs, q_lens, corpus, lens, _ = _k3_case(name, words=8)
-    offs, scores = k3_model(qs, q_lens, corpus, lens, thr)
+    offs, scores = k3_tiles_model(qs, q_lens, corpus, lens, thr)
     want_o, want_s = align.fragment_search_batch_plain(
         _t(qs), _t(q_lens), _t(corpus), _t(lens), thr)
     assert np.array_equal(offs, want_o.numpy())
@@ -313,6 +430,164 @@ def test_k3_periodic_case_ties_across_bands():
     assert len({(int(o) + qs.shape[1] - 1) // 128 for o in offsets}) > 1
     offs, _ = k3_model(qs, q_lens, corpus, lens, thr)
     assert offs[0, 1] == offsets[0]
+
+
+@pytest.mark.parametrize("words,thr", [(8, 10), (8, 40), (3, 0), (23, 32 * 23)])
+@pytest.mark.parametrize("name", K3_CASES)
+def test_k3_tiles_decomposition_equals_plain(name, words, thr):
+    """K3's tiles form on its own plan at W = 3, 8 and 23 (N = 256, 256,
+    64): queries of different lengths padded to one Tq_pad, corpus lengths
+    that are no multiple of N, identical rows and still runs, thresholds
+    from 0 to 32 W."""
+    qs, q_lens, corpus, lens, _ = _k3_case(name, words=words)
+    offs, scores = k3_tiles_model(qs, q_lens, corpus, lens, thr)
+    want_o, want_s = align.fragment_search_batch_plain(
+        _t(qs), _t(q_lens), _t(corpus), _t(lens), thr)
+    assert np.array_equal(offs, want_o.numpy())
+    assert np.array_equal(scores, want_s.numpy())
+
+
+@pytest.mark.parametrize("plan", [(100, 1), (37, 2), (409, 2)], ids=str)
+@pytest.mark.parametrize("name", ["periodic", "short_rows", "static_runs",
+                                  "not_band_multiple"])
+def test_k3_tiles_split_plans_equal_plain(name, plan):
+    """Plans of (band, queries a CTA) that split each diagonal row across
+    CTAs (100 and 37 diagonals, which no tile aligns with) and group the
+    queries, at W = 8."""
+    qs, q_lens, corpus, lens, thr = _k3_case(name, words=8)
+    offs, scores = k3_tiles_model(qs, q_lens, corpus, lens, thr, plan=plan)
+    want_o, want_s = align.fragment_search_batch_plain(
+        _t(qs), _t(q_lens), _t(corpus), _t(lens), thr)
+    assert np.array_equal(offs, want_o.numpy())
+    assert np.array_equal(scores, want_s.numpy())
+
+
+@pytest.mark.parametrize("name", ["periodic", "identical", "static_runs"])
+def test_k3_tiles_one_word_rows(name):
+    """W = 1 (32-term dots) takes the tiles form too."""
+    qs, q_lens, corpus, lens, _ = _k3_case(name, words=1)
+    offs, scores = k3_tiles_model(qs, q_lens, corpus, lens, 4)
+    want_o, want_s = align.fragment_search_batch_plain(
+        _t(qs), _t(q_lens), _t(corpus), _t(lens), 4)
+    assert np.array_equal(offs, want_o.numpy())
+    assert np.array_equal(scores, want_s.numpy())
+
+
+def test_k3_tiles_periodic_maxima_in_different_ctas():
+    """The periodic case's tied maxima fall in different CTAs of a plan of
+    100-diagonal bands, and the combine keeps the first."""
+    qs, q_lens, corpus, lens, thr = _k3_case("periodic", words=8)
+    n = int(q_lens[0])
+    s = align.align_scores(_t(qs[0, :n]), _t(corpus[1]), thr).numpy()
+    offsets = np.flatnonzero(s == s.max()) - (n - 1)
+    assert len({(int(o) + qs.shape[1] - 1) // 100 for o in offsets}) > 1
+    offs, _ = k3_tiles_model(qs, q_lens, corpus, lens, thr, plan=(100, 1))
+    assert offs[0, 1] == offsets[0]
+
+
+@pytest.mark.parametrize("name,whole,in_part", [
+    ("identical", True, True), ("static_runs", True, True),
+    ("periodic", False, True)])
+def test_k3_tiles_block_paths_are_taken(name, whole, in_part):
+    """The tiles form's counting paths: whole 16 x 64 quarters (identical
+    rows, still runs) and quarters that match in part; the two warpgroups
+    share the items to within one."""
+    stats = {}
+    qs, q_lens, corpus, lens, thr = _k3_case(name, words=8)
+    k3_tiles_model(qs, q_lens, corpus, lens, thr, plan=(409, 2), stats=stats)
+    assert (stats["whole"] > 0) == whole
+    assert (stats["pairwise"] > 0) == in_part
+    assert 0 <= stats["items_wg0"] - stats["items_wg1"] <= 1
+
+
+def _cell_request(seed=15):
+    """A request of the fragment-search cell: 4 span lengths (log-uniform
+    in 256 .. 1,024) padded to one Tq_pad, and its two buckets (V, Tc)."""
+    rng = np.random.default_rng(seed)
+    q_lens = np.exp(rng.uniform(np.log(256), np.log(1024), 4)).astype(int)
+    return q_lens, -(-int(q_lens.max()) // 64) * 64, ((4080, 4096), (64, 1024))
+
+
+@pytest.mark.parametrize("seed", [15, 16, 17])
+def test_k3_tiles_multiplies_each_pair_about_once_at_the_cell(seed):
+    """At the cell's shapes the plan gives one CTA a video and every query
+    (the catalog) or one a query (64 sources), one band of whole diagonal
+    rows, shared memory within a block's; the pairs multiplied are at most
+    1.15 times the pairs ``peaks.align_ops`` counts, and each corpus row is
+    unpacked once a CTA."""
+    q_lens, tq_pad, buckets = _cell_request(seed)
+    multiplied = counted = 0
+    for v, tc in buckets:
+        rows, band, qg, bands, groups, smem = align.k3_tiles_plan(
+            4, tq_pad, v, tc, 8, 132)
+        assert (rows, band, bands) == (256, tq_pad + tc - 1, 1)
+        assert (qg, groups) == ((4, 1) if v == 4080 else (1, 4))
+        assert smem <= 232448 - 1024
+        # Every video has Tc rows: one CTA per (video, group) stands for all.
+        for _, _, _, _, tiles in k3_tiles_walk(q_lens, tq_pad, [tc], tc, rows,
+                                               band, qg):
+            assert [j0 for j0, _ in tiles] == list(range(0, tc, rows))
+            multiplied += v * 64 * rows * sum(len(items) for _, items in tiles)
+        counted += int(q_lens.sum()) * v * tc
+    assert multiplied <= 1.15 * counted
+
+
+def test_k3_tiles_plan_fits_and_covers():
+    """For every W of the form and shapes from one query to 65,535, from
+    one video to thousands and to 32,768-frame videos: the bands cover the
+    diagonals, the groups the queries, shared memory fits a block, and the
+    grid holds a CTA for every SM where the work allows."""
+    for words in (1, 3, 7, 8, 9, 16, 17, 23):
+        for q, tq_pad, v, tc in [(4, 1024, 4080, 4096), (4, 1024, 64, 1024),
+                                 (1, 768, 1024, 1024), (4, 1024, 100, 32768),
+                                 (3, 320, 37, 1024), (1, 64, 1, 256),
+                                 (65535, 64, 3, 256), (1, 16512, 2, 4096)]:
+            rows, band, qg, bands, groups, smem = align.k3_tiles_plan(
+                q, tq_pad, v, tc, words, 132)
+            nd = tq_pad + tc - 1
+            assert rows == (256 if words <= 8 else 128 if words <= 16 else 64)
+            assert band * bands >= nd > band * (bands - 1)
+            assert qg * groups >= q > qg * (groups - 1)
+            assert smem <= 232448 - 1024
+            assert groups * v * bands >= 132 or (qg == 1 and band <= max(512, -(-nd // 2)))
+
+
+def test_k3_form_by_word_width():
+    """``align.k3_form`` mirrors the C entry point's choice by W."""
+    assert align.k3_form(2) == "bands"
+    assert [align.k3_form(w) for w in (1, 3, 8, 23)] == ["tiles"] * 4
+    assert [align.k3_form(w) for w in (24, 32, 128)] == ["chunked"] * 3
+    for bad in (0, align.K3_MAX_WORDS + 1):
+        with pytest.raises(ValueError):
+            align.k3_form(bad)
+
+
+@pytest.mark.parametrize("words", [2, 8, 23, 32])
+def test_k3_counts_each_launch_under_its_form(words, monkeypatch):
+    """A launch through the wrapper counts once in ``K3.launches`` and once
+    under its form (the C call itself stubbed: there is no card here), and
+    passes the tiles form the band and query group of ``k3_tiles_plan``;
+    ``reset_launch_counts`` clears both counts."""
+    from tvidz_tpu_torch import backend
+
+    calls = []
+    monkeypatch.setattr(align.K3, "call", lambda fn, *a: calls.append((fn, a)))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(backend, "stream_ptr", lambda d: None)
+    qs, q_lens, corpus, lens, thr = _k3_case("short_rows", words=words)
+    before, forms = align.K3.launches, dict(align.K3.form_launches)
+    align._fragment_search_cuda(_t(qs), _t(q_lens), _t(corpus), _t(lens), thr)
+    form = align.k3_form(words)
+    assert [fn for fn, _ in calls] == ["tvz_fragment_search"]
+    assert align.K3.launches == before + 1
+    plan = (align.k3_tiles_plan(*qs.shape[:2], *corpus.shape[:2], words, 132)[1:3]
+            if form == "tiles" else (0, 0))
+    assert tuple(calls[0][1][10:12]) == plan
+    assert align.K3.form_launches[form] == forms.get(form, 0) + 1
+    backend.reset_launch_counts()
+    assert align.K3.launches == 0 and not align.K3.form_launches
 
 
 # -- K4 -----------------------------------------------------------------------

@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -78,7 +79,8 @@ def _nvcc() -> str:
 class Kernel:
     """One hand-written CUDA source, its lazily built library, and the count
     of launches its Python wrappers made (raised by ``launch``, and nowhere
-    else)."""
+    else), in all and, where the wrapper names the form a launch took, per
+    form (``form_launches``)."""
 
     def __init__(self, name: str, replaces: str,
                  entry_points: Dict[str, Sequence[type]]):
@@ -86,6 +88,7 @@ class Kernel:
         self.replaces = replaces
         self.source = os.path.join(CSRC_DIR, f"{name}.cu")
         self.launches = 0
+        self.form_launches: Counter = Counter()
         self.build_log = ""
         self._entry_points = entry_points
         self._lib: Optional[ctypes.CDLL] = None
@@ -139,14 +142,18 @@ class Kernel:
             msg = lib.tvz_error_string(rc).decode(errors="replace")
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc} ({msg})")
 
-    def launch(self, fn: str, device: torch.device, *args) -> None:
+    def launch(self, fn: str, device: torch.device, *args,
+               form: Optional[str] = None) -> None:
         """Launch the kernel through entry point ``fn`` on ``device``'s
-        current stream (passed as the last argument), and count it. The
-        entry points launch on the current CUDA device and keep per-device
-        state, so ``device`` is made current for the call."""
+        current stream (passed as the last argument), and count it, under
+        ``form`` too where given. The entry points launch on the current
+        CUDA device and keep per-device state, so ``device`` is made current
+        for the call."""
         with torch.cuda.device(device):
             self.call(fn, *args, stream_ptr(device))
         self.launches += 1
+        if form is not None:
+            self.form_launches[form] += 1
 
 
 KERNELS: List[Kernel] = []
@@ -170,6 +177,7 @@ def build_all() -> None:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.form_launches.clear()
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -18,8 +18,9 @@ of its tree, ``align.py:72-85``, is not copied).
 (``csrc/fragment_search.cu``, int8 ±1 products on the tensor cores, rows of
 any W from 1 to ``K3_MAX_WORDS`` words: W = 2 for the 64-bit pHash, 8 for
 phash256, 32 at ``TVIDZ_HASH_SIZE=32``, 128 at ``TVIDZ_DCT_SIZE=64
-TVIDZ_HASH_SIZE=64``; past 23 words the kernel walks them in chunks) on
-CUDA tensors and run the plain versions
+TVIDZ_HASH_SIZE=64``) on CUDA tensors, in the form ``k3_form`` names (128-
+offset bands at W = 2, tiles of the Hamming matrix up to 23 words, the
+words in chunks past that), and run the plain versions
 (``fragment_search_batch_plain`` / ``fragment_core``) on CPU tensors; there
 is no fallback between the two. Fingerprints are int32 bit-views of the
 reference's uint32 words.
@@ -41,7 +42,7 @@ K3 = backend.register(backend.Kernel(
     replaces="tvidz_tpu/ops/align_pallas.py:91 (_fragment_kernel)",
     entry_points={
         "tvz_fragment_search": [_p, _p, _i, _i, _p, _p, _i, _i, _i, _i,
-                                _p, _p, _p, _p],
+                                _i, _i, _p, _p, _p, _p],
     },
 ))
 
@@ -49,6 +50,58 @@ K3 = backend.register(backend.Kernel(
 # 32·W - 2·thr stays an int32. Shared memory sets no limit (wide rows walk
 # their words in chunks).
 K3_MAX_WORDS = 1 << 24
+# The widest rows of the tiles form (kMaxWords); past them, the chunked one.
+K3_TILES_MAX_WORDS = 23
+# The tiles form's plan is made here and passed to the kernel. Its
+# constants: a block's shared memory on Hopper and the room the kernel keeps
+# for its static shared memory (kMaxSmem, kTilesStatic in
+# csrc/fragment_search.cu), the narrowest band the plan cuts.
+_MAX_SMEM, _TILES_STATIC, _MIN_BAND = 232448, 1024, 512
+
+
+def k3_form(words: int) -> str:
+    """Which of K3's forms runs rows of ``words`` 32-bit words: "bands" at
+    W = 2 (128-offset bands, the 64-bit pHash), "tiles" from 1 to 23 words
+    but 2 (the Hamming matrix in 64 x N tiles, phash256), "chunked" past
+    23 (the words in chunks of 16). Raises outside 1 .. K3_MAX_WORDS."""
+    w = int(words)
+    if not 1 <= w <= K3_MAX_WORDS:
+        raise ValueError(f"the fragment-search kernel takes rows of "
+                         f"1..{K3_MAX_WORDS} words, got {w}")
+    if w == 2:
+        return "bands"
+    return "tiles" if w <= K3_TILES_MAX_WORDS else "chunked"
+
+
+def k3_tiles_plan(q: int, tq_pad: int, v: int, tc: int, words: int,
+                  n_sm: int) -> Tuple[int, int, int, int, int, int]:
+    """The tiles form's plan on a card of ``n_sm`` SMs, whose band and
+    queries a CTA the launch passes to the kernel: (rows of a corpus tile,
+    band of diagonals a CTA, queries a CTA, bands, query groups, dynamic
+    shared memory in bytes). The grid is (V x bands, groups). The whole
+    diagonal row is one band where one query's counters fit, with as many
+    queries a group as fit beside it; groups, then bands (to no fewer than
+    512 diagonals), shrink until the grid has a CTA for every SM."""
+    rows = 256 if words <= 8 else (128 if words <= 16 else 64)   # the products' N
+    fixed = 2 * rows * 32 * words + 2 * (rows * 4 * words + 32)
+    cap = (_MAX_SMEM - _TILES_STATIC - fixed) // 4
+    nd = tq_pad + tc - 1
+    band, qg = nd, 1
+    if nd <= cap:
+        qg = min(q, cap // nd)
+    else:
+        band = cap
+    bands = -(-nd // band)
+    qg = max(1, min(qg, q * v * bands // max(n_sm, 1)))
+    groups = -(-q // qg)
+    qg = -(-q // groups)
+    if groups * v * bands < n_sm:
+        want = -(-n_sm // (groups * v))
+        band = min(band, max(min(_MIN_BAND, nd), -(-nd // want)))
+        bands = -(-nd // band)
+    return rows, band, qg, bands, groups, fixed + 4 * qg * band
+
+
 # int32 elements per step of the plain versions (bounds their memory: the
 # Hamming matrix and the skewed match matrix of a group of videos).
 _PLAIN_ELEMS = 1 << 22
@@ -166,9 +219,7 @@ def _fragment_search_cuda(q_fps, q_lens, corpus, lens, thr):
     dev = q_fps.device
     qn, tq_pad, w = q_fps.shape
     v, tc, _ = corpus.shape
-    if not 1 <= w <= K3_MAX_WORDS:
-        raise ValueError(f"the fragment-search kernel takes rows of "
-                         f"1..{K3_MAX_WORDS} words, got {w}")
+    form = k3_form(w)
     backend.require(q_fps, "queries", torch.int32, (qn, tq_pad, w), dev)
     backend.require(q_lens, "query lengths", torch.int32, (qn,), dev)
     backend.require(corpus, "corpus", torch.int32, (v, tc, w), dev)
@@ -176,13 +227,17 @@ def _fragment_search_cuda(q_fps, q_lens, corpus, lens, thr):
     if not 1 <= qn <= 65535 or tq_pad + tc >= 2 ** 31 or qn * v >= 2 ** 31:
         raise ValueError(f"fragment search shape out of range: Q={qn}, "
                          f"Tq_pad={tq_pad}, V={v}, Tc={tc}")
+    band = q_group = 0
+    if form == "tiles":
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        _, band, q_group, _, _, _ = k3_tiles_plan(qn, tq_pad, v, tc, w, n_sm)
     keys = torch.empty((qn, v), dtype=torch.int64, device=dev)
     offs = torch.empty((qn, v), dtype=torch.int32, device=dev)
     scores = torch.empty((qn, v), dtype=torch.int32, device=dev)
     p = backend.ptr
     K3.launch("tvz_fragment_search", dev, p(q_fps), p(q_lens), qn, tq_pad,
-              p(corpus), p(lens), v, tc, w, int(thr), p(keys), p(offs),
-              p(scores))
+              p(corpus), p(lens), v, tc, w, int(thr), band, q_group, p(keys),
+              p(offs), p(scores), form=form)
     return offs, scores
 
 
