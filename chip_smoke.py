@@ -2803,24 +2803,26 @@ def align_bound_ms(q_lens, lens, words: int) -> float:
     return peaks.align_bound_s(q_lens.tolist(), lens.tolist(), words) * 1e3
 
 
-def time_k3_request(dev) -> dict:
-    """K3 at W = 8 at the fragment-search cell's per-request shape: Q = 4
-    spans of K3_REQUEST_SPANS frames (one Tq_pad) against its two buckets,
-    4,080 catalog videos of 4,096 frames and 64 sources of 1,024, each
-    launch's device time beside its bound; the two together are one
-    request's K3. Random rows with a planted span a query, each found whole
-    at its offset; the sources bucket and the catalog's first
-    K3_REQUEST_PLAIN_VIDEOS videos equal to the plain version."""
+def time_k3_request(dev, w: int) -> dict:
+    """K3 at rows of ``w`` words at the fragment-search cells' per-request
+    shape (W = 8: ``fragsearch-phash256``, the tiles form; W = 2:
+    ``fragsearch-phash64``, the band form): Q = 4 spans of K3_REQUEST_SPANS
+    frames (one Tq_pad) against the two buckets, 4,080 catalog videos of
+    4,096 frames and 64 sources of 1,024, each launch's device time beside
+    its bound; the two together are one request's K3. Random rows with a
+    planted span a query, each found whole at its offset; the sources
+    bucket and the catalog's first K3_REQUEST_PLAIN_VIDEOS videos equal to
+    the plain version."""
     import torch
 
     from tvidz_tpu_torch.ops import align
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 15)
-    w = PHASH256_WORDS
     tq_pad = -(-max(K3_REQUEST_SPANS) // 64) * 64
     ql = torch.tensor(K3_REQUEST_SPANS, dtype=torch.int32, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    form = align.k3_form(w)
     out, total_ms, total_bound = {}, 0.0, 0.0
     for name, (v, tc) in (("catalog", (4080, 4096)), ("sources", (64, 1024))):
         c = torch.randint(-2 ** 31, 2 ** 31, (v, tc, w), dtype=torch.int32,
@@ -2836,18 +2838,19 @@ def time_k3_request(dev) -> dict:
         for q, n in enumerate(K3_REQUEST_SPANS):
             row = (17 * q + 3) % v
             check(int(ks[q, row]) == n and int(ko[q, row]) == tc - n,
-                  f"K3 request ({name}): query {q} at video {row} read "
+                  f"K3 request, W = {w} ({name}): query {q} at video {row} read "
                   f"{int(ko[q, row])}, {int(ks[q, row])} != {tc - n}, {n}")
         k = min(v, K3_REQUEST_PLAIN_VIDEOS)
         po, ps = align.fragment_search_batch_plain(qs, ql, c[:k], ln[:k], FRAG_THR)
         check(torch.equal(ko[:, :k], po) and torch.equal(ks[:, :k], ps),
-              f"K3 request ({name}): the first {k} videos differ from the "
+              f"K3 request, W = {w} ({name}): the first {k} videos differ from the "
               f"plain version")
         b = align_bound_ms(ql, ln, w)
         out[name] = {"shape": [4, tq_pad, v, tc], "device_ms": ms, "align_bound_ms": b,
                      "plain_checked_videos": k,
-                     "roofline_pct": 100.0 * b / ms,
-                     "plan": align.k3_tiles_plan(4, tq_pad, v, tc, w, n_sm)}
+                     "roofline_pct": 100.0 * b / ms, "form": form}
+        if form == "tiles":
+            out[name]["plan"] = align.k3_tiles_plan(4, tq_pad, v, tc, w, n_sm)
         total_ms, total_bound = total_ms + ms, total_bound + b
         del c
     out.update(spans=list(K3_REQUEST_SPANS), device_ms=total_ms,
@@ -2970,7 +2973,8 @@ def time_kernels(dev) -> dict:
              "dense_device_ms": device_ms(
                  lambda: align.fragment_search_batch(dq8, ql8, dc8, ln8, FRAG_THR), 5)}
     del c8, dc8
-    k3_w8_request = time_k3_request(dev)
+    k3_w8_request = time_k3_request(dev, PHASH256_WORDS)
+    k3_w2_request = time_k3_request(dev, 2)
     # K4, K2 and K3 at the widths they walk in word chunks (and W = 26 and
     # 32, which K4 holds in one pass and K2 in one chunk). The plain XOR
     # scan is not timed there (seconds a call at W = 128; K2 is off every
@@ -3010,7 +3014,8 @@ def time_kernels(dev) -> dict:
         wider[words] = row
     return {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_geometries": k1_geo,
             "k4_w8": k4_w8, "k2_w8": k2_w8, "k3_w8": k3_w8,
-            "k3_w8_request": k3_w8_request, "wider_words": wider,
+            "k3_w8_request": k3_w8_request, "k3_w2_request": k3_w2_request,
+            "wider_words": wider,
             "k1_device_ms": sum(k1_items.values()),
             "k1_device_items": sorted(k1_items),
             "k1_grid": fused.fingerprint_grid(FRAMES, HEIGHT, WIDTH),

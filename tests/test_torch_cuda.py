@@ -593,6 +593,114 @@ def test_fragment_search_tiles_matches_plain(dev, words, thr_of):
     assert align.K3.form_launches["tiles"] == before + 2
 
 
+def test_fragment_search_bands_tied_answers(dev):
+    """K3's band form (W = 2, the 64-bit pHash) where answers hold ties.
+    (a) The tie catalog of tests/test_torch_fragment_ties.py: each bucket's
+    launch equal to the plain version, and ``locate_fragments`` on the card
+    equal to the benchmark's reference at thresholds 9, 10 and 11. (b) A
+    request of the fragsearch-phash64 cell: Q = 4 spans of 256-1,024 frames
+    (Tq_pad 1,024) against 4,080 catalog videos of 4,096 frames made as the
+    cell makes them (shots whose frames share a base hash, planted copies of
+    the sources) and the 64 sources, with two query frames planted as the
+    base of a shot (a run of 150 tied offsets); every offset and score
+    equal to the plain version's, both launches in the band form."""
+    from perfbench import data
+    from test_torch_fragment_ties import (SOURCE, corpus, flip_bits, reference,
+                                          tie_catalog)
+
+    t = _u32(dev)
+    videos, queries, _ = tie_catalog()
+    ref, card = reference(videos), corpus(videos, dev)
+    before = align.K3.form_launches["bands"]
+    for thr in (9, 10, 11):
+        got = card.locate_fragments(queries, top_k=10, hamming_threshold=thr,
+                                    exclude_video_ids=[SOURCE, None])
+        assert got == [ref.align(queries[0], thr, 10, SOURCE),
+                       ref.align(queries[1], thr, 10, None)]
+    q = np.full((2, 128, 2), 0xFFFFFFFF, np.uint32)
+    for i, fp in enumerate(queries):
+        q[i, :len(fp)] = fp
+    ql = torch.tensor([len(fp) for fp in queries], dtype=torch.int32, device=dev)
+    for bu in filter(None, card._al_buckets):
+        ko, ks = align.fragment_search_batch(t(q), ql, bu.dev, bu.len_dev, 10)
+        po, ps = align.fragment_search_batch_plain(t(q), ql, bu.dev, bu.len_dev, 10)
+        assert torch.equal(ko, po) and torch.equal(ks, ps)
+    assert align.K3.form_launches["bands"] == before + 3 * 2 + 2
+
+    seed = 2 ** 33 + 16
+    cat, _ = data.catalog(seed, dev, 4080, 4096, 2, (80, 300), 6)
+    src = data.random_words(data.torch_gen(seed, dev, "sources"), (64, 1024, 2),
+                            dev).cpu().numpy().astype(np.uint32)
+    hosts = {h for h, _ in data.planted_copies(seed, dev, cat, src, 10)}
+    spans = [256, 431, 702, 1024]
+    qs = np.full((4, 1024, 2), 0xFFFFFFFF, np.uint32)
+    for i, n in enumerate(spans):
+        qs[i, :n] = src[9 * i, 1024 - n:]
+    rng = np.random.default_rng(16)
+    shots = [v for v in range(100, 4080) if v not in hosts][:2]
+    for v, (i, f) in zip(shots, ((0, 17), (2, 600))):
+        cat[v, 1000:1150] = [flip_bits(qs[i, f], r % 3, rng) for r in range(150)]
+    ql = torch.tensor(spans, dtype=torch.int32, device=dev)
+    before = align.K3.form_launches["bands"]
+    got = {}
+    for name, rows in (("catalog", cat), ("sources", src)):
+        c = t(rows)
+        ln = torch.full((rows.shape[0],), rows.shape[1], dtype=torch.int32,
+                        device=dev)
+        got[name] = align.fragment_search_batch(t(qs), ql, c, ln, 10)
+        po, ps = align.fragment_search_batch_plain(t(qs), ql, c, ln, 10)
+        assert torch.equal(got[name][0], po) and torch.equal(got[name][1], ps)
+        del c
+    assert align.K3.form_launches["bands"] == before + 2
+    ko, ks = got["catalog"]
+    assert [(int(ko[i, v]), int(ks[i, v])) for v, i, f in
+            zip(shots, (0, 2), (17, 600))] == [(1000 - 17, 1), (1000 - 600, 1)]
+    ko, ks = got["sources"]
+    assert [(int(ko[i, 9 * i]), int(ks[i, 9 * i])) for i in range(4)] == \
+        [(1024 - n, n) for n in spans]
+
+
+def test_fragment_search_host_copies_do_not_wait_for_the_stream(dev):
+    """A search's queries and lengths are placed without waiting for the
+    work already queued on the stream (other requests' scans), so the corpus
+    lock is never held across them; its results' pull waits for its own
+    scans, not for work queued after them. The copied values are the
+    originals, and a search behind queued work still equals the CPU
+    corpus."""
+    from tvidz_tpu_torch.corpus.device_corpus import DeviceCorpus
+    from test_torch_fragment_ties import corpus, tie_catalog
+
+    c = DeviceCorpus(words=2, device=dev)
+    rng = np.random.default_rng(16)
+    q = rng.integers(0, 2 ** 32, (4, 1024, 2), dtype=np.uint32)
+    lens = np.asarray([256, 431, 702, 1024], np.int32)
+    stream = torch.cuda.current_stream()
+    for host in (q, lens):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)     # ~0.1 s of the card's clock
+        placed = c._place_fragment_query(host)
+        assert not stream.query(), "the placement waited for the stream"
+        torch.cuda.synchronize()
+        assert np.array_equal(placed.cpu().numpy(), host.view(np.int32))
+
+    res = torch.arange(4 * 4160, dtype=torch.int32, device=dev).view(4, 4160)
+    torch.cuda.synchronize()
+    hosts, done = c._queue_pull([res[:, :4144], res[:, 7:]])
+    torch.cuda._sleep(200_000_000)         # the next request's scans
+    done.synchronize()
+    assert not stream.query(), "the pull waited for later work"
+    assert torch.equal(hosts[0], res[:, :4144].cpu())
+    assert torch.equal(hosts[1], res[:, 7:].cpu())
+
+    videos, queries, _ = tie_catalog()
+    card, cpu = corpus(videos, dev), corpus(videos)
+    want = cpu.locate_fragments(queries, top_k=10)
+    card.locate_fragments(queries, top_k=10)   # the buckets' first placement
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    assert card.locate_fragments(queries, top_k=10) == want
+
+
 def test_phash256_analyze_on_the_card(dev, monkeypatch):
     """A model under phash256 on the card: the family's composition (no K1
     launch), the same cuts and fingerprints within 8 bits of the CPU's."""

@@ -291,7 +291,7 @@ def test_search_request_nests_locate_and_its_pull(service):
     for name in ("search.read", "search.resolve"):
         assert spans[name][0].parent == req.id
     for name in ("corpus.lock", "locate.place", "locate.launch",
-                 "locate.rank"):
+                 "locate.copy", "locate.rank"):
         assert spans[name][0].parent == loc.id
     assert "k3_device_s" not in loc.attrs       # no CUDA events on the CPU
 

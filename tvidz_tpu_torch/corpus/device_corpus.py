@@ -26,6 +26,7 @@ video table, attr ``bytes``), ``corpus.k4`` (the mirror's sync and K4's
 launch), ``corpus.pull`` and ``corpus.evidence`` (the host count);
 ``locate_fragments`` is a ``locate`` span over ``corpus.lock``,
 ``locate.place``, ``locate.launch`` (bucket syncs and K3 launches),
+``locate.copy`` (the results' host copies queued behind them),
 ``locate.pull`` and ``locate.rank``. While tracing is on, a CUDA event pair
 around one request's launches (made under the lock, so no other request's
 scans come between them) gives the ``locate`` span's attr ``k3_device_s``,
@@ -124,6 +125,8 @@ class DeviceCorpus:
         # first use and kept: destroying an event blocks with the GIL held
         # while another thread waits on the stream, stalling every thread.
         self._k3_events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        # Free events that mark a locate's results copied, kept likewise.
+        self._pull_events: List[torch.cuda.Event] = []
         self._init_state()
 
     def _init_state(self) -> None:
@@ -588,9 +591,30 @@ class DeviceCorpus:
         return out
 
     def _place_fragment_query(self, q: np.ndarray) -> torch.Tensor:
-        """The padded (Q, Tq_pad, W) uint32 queries on the device, placed
-        once per call for every bucket's scan."""
-        return self._to_device(np.ascontiguousarray(q).view(np.int32))
+        """The padded (Q, Tq_pad, W) uint32 queries (or their int32 lengths)
+        on the device, placed once per call for every bucket's scan. On a
+        card the copy comes from pinned memory and does not wait for the
+        stream, so under the corpus lock a request queues its scans behind
+        the other requests' instead of waiting them out with the card idle
+        (the pinned block is not reused before the copy has run)."""
+        host = torch.from_numpy(np.ascontiguousarray(q).view(np.int32))
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _queue_pull(self, tensors):
+        """Host copies of a request's results, queued under the corpus lock
+        right behind its scans: on a card into pinned memory, with an event
+        (kept for reuse) recorded behind them, so the pull waits for this
+        request's scans alone and not for those the other requests queue
+        after them. On the CPU, the tensors themselves and no event."""
+        if self.device.type != "cuda":
+            return tensors, None
+        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 .copy_(t, non_blocking=True) for t in tensors]
+        done = self._pull_events.pop() if self._pull_events else torch.cuda.Event()
+        done.record()
+        return hosts, done
 
     def _fragment_query(self, q, q_lens, al_dev, len_dev, thr):
         """One bucket's alignment scan: ((Q, V) offsets, (Q, V) scores)."""
@@ -653,7 +677,7 @@ class DeviceCorpus:
                 return out
             with span("locate.place"):
                 q_dev = self._place_fragment_query(q)
-                q_lens = self._to_device(np.asarray(
+                q_lens = self._place_fragment_query(np.asarray(
                     [query_fps_list[i].shape[0] for i in live], np.int32))
             # Every bucket's scan is launched before any result is pulled,
             # and under the lock: a later dirty-row sync writes the bucket
@@ -676,12 +700,17 @@ class DeviceCorpus:
                         bu.vid[: bu.count].copy(), bu.count))
                 if events is not None:
                     events[1].record()
+            with span("locate.copy"):
+                hosts, done = self._queue_pull(
+                    [t[:, :count] for pair, _, count in pending for t in pair])
         finally:
             self._lock.release()
         with span("locate.pull"):
-            pulled = [(offs[:, :count].cpu().numpy(),
-                       scores[:, :count].cpu().numpy(), vids)
-                      for (offs, scores), vids, count in pending]
+            if done is not None:
+                done.synchronize()
+                self._pull_events.append(done)
+            pulled = [(hosts[2 * k].numpy(), hosts[2 * k + 1].numpy(), vids)
+                      for k, (_, vids, _) in enumerate(pending)]
         if events is not None:
             if pending:
                 sp.note(k3_device_s=events[0].elapsed_time(events[1]) / 1e3)
