@@ -89,6 +89,8 @@ import sys
 import tempfile
 import time
 
+from perfbench import peaks
+
 SEED = 20260
 FRAMES, HEIGHT, WIDTH = 128, 90, 160        # the main path's block
 SCAN_M, SCAN_N = 128, 1 << 20               # queries x corpus rows
@@ -310,37 +312,31 @@ def read_launches(expected, what: str) -> dict:
     return launches
 
 
-# The least time the card could take, from its peak rates: NVIDIA H100
-# SXM data-sheet peaks at 700 W. A Hamming distance between 64-bit
-# fingerprints is bounded as the card's fastest form of it, a 64-term ±1
-# int8 dot product on the tensor cores, whichever kernel computes it.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-INT8_TC_OPS_PER_S = 1979e12
+# The least time the card could take (``perfbench/peaks.py``), in ms,
+# labelled by what sets it: its operations or its bytes.
+def labelled(seconds: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by) of a bound of ``seconds`` whose work is ``ops``."""
+    return seconds * 1e3, "operations" if seconds == ops / ops_per_s else "bytes"
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float):
     """(bound_ms, bound_by) for moving ``nbytes`` once and doing ``ops``."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    return labelled(peaks.bound_s(nbytes, ops, ops_per_s), ops, ops_per_s)
 
 
 def k1_bound(frames: int, h: int = HEIGHT, w: int = WIDTH):
-    """K1 over ``frames`` frames of (h, w): the frames, the carry frame in
-    and out, scores and hashes; per frame the factored DCT (2*8*H*W +
-    2*8*8*H) and mafd (3*H*W) in fp32."""
-    return bound(
-        frames * h * w + 2 * 4 * h * w + frames * 12,
-        frames * (2 * 8 * h * w + 2 * 64 * h + 3 * h * w),
-        FP32_OPS_PER_S)
+    """K1 over one stream's ``frames`` frames of (h, w); per frame the
+    factored DCT and the mafd in fp32."""
+    return labelled(peaks.k1_bound_s([frames], h, w),
+                    frames * (2 * 8 * h * w + 2 * 64 * h + 3 * h * w),
+                    peaks.FP32_OPS_PER_S)
 
 
 def scan_bound(m: int, n: int, words: int):
     """A corpus scan (query-nearest) of m queries against n rows of
-    ``words`` words: corpus and queries in, q_min and q_arg out; 32 W int8
-    multiply-adds per pair."""
-    return bound(4 * words * (n + m) + 8 * m, 2 * 32 * words * m * n,
-                 INT8_TC_OPS_PER_S)
+    ``words`` words: one 32 W-term dot per pair."""
+    return labelled(peaks.scan_bound_s(m, n, words),
+                    peaks.align_ops([m], [n], words), peaks.INT8_TC_OPS_PER_S)
 
 
 # -- phase 3: K1 -----------------------------------------------------------------
@@ -2798,8 +2794,6 @@ def k1_timed_row(dev, gen, frames: int, h: int, w: int) -> dict:
 def align_bound_ms(q_lens, lens, words: int) -> float:
     """``perfbench/peaks.align_bound_s`` of a K3 call's real query and video
     lengths, in ms: the yardstick of the benchmark's ``k3_roofline``."""
-    from perfbench import peaks
-
     return peaks.align_bound_s(q_lens.tolist(), lens.tolist(), words) * 1e3
 
 
@@ -2965,7 +2959,7 @@ def time_kernels(dev) -> dict:
     pairs8 = int(ql8.to(torch.int64).sum() * ln8.to(torch.int64).sum())
     bytes8 = sum(t.numel() * t.element_size() for t in (qs8, ql8, c8, ln8)) \
         + 2 * 4 * FRAG_A[0] * FRAG_A[2]
-    b = bound(bytes8, 2 * 32 * PHASH256_WORDS * pairs8, INT8_TC_OPS_PER_S)
+    b = bound(bytes8, 2 * 32 * PHASH256_WORDS * pairs8, peaks.INT8_TC_OPS_PER_S)
     dc8, dq8 = dense_inputs(c8, qs8)
     k3_w8 = {"shape": list(FRAG_A), "ms": ms, "plain_ms": plain_ms,
              "device_ms": device_ms(fn, 10), "bound_ms": b[0], "bound_by": b[1],
@@ -3007,7 +3001,7 @@ def time_kernels(dev) -> dict:
         pairs = int(ql.to(torch.int64).sum() * ln.to(torch.int64).sum())
         nbytes = sum(t.numel() * t.element_size() for t in (qs, ql, c, ln)) \
             + 2 * 4 * K3_WIDER_SHAPE[0] * K3_WIDER_SHAPE[2]
-        bk3 = bound(nbytes, 2 * 32 * words * pairs, INT8_TC_OPS_PER_S)
+        bk3 = bound(nbytes, 2 * 32 * words * pairs, peaks.INT8_TC_OPS_PER_S)
         row["k3"] = {"shape": list(K3_WIDER_SHAPE), "ms": ms, "plain_ms": plain_ms,
                      "device_ms": device_ms(fn, 5), "bound_ms": bk3[0],
                      "bound_by": bk3[1]}
@@ -3128,13 +3122,12 @@ def main(argv=None) -> int:
     m, n = SCAN_M, SCAN_N
     bounds = {
         fused.K1.name: k1_bound(FRAMES),
-        # K2 and K4 time the same function (query-nearest): corpus and
-        # queries in, q_min and q_arg out; 64 int8 multiply-adds per pair.
-        hamming.K2.name: bound(8 * n + 16 * m, 2 * 64 * m * n, INT8_TC_OPS_PER_S),
-        hamming.K4.name: bound(8 * n + 16 * m, 2 * 64 * m * n, INT8_TC_OPS_PER_S),
+        # K2 and K4 time the same function (query-nearest) at W = 2.
+        hamming.K2.name: scan_bound(m, n, 2),
+        hamming.K4.name: scan_bound(m, n, 2),
         # K3 at shape (a): 64 int8 multiply-adds per overlapping pair.
         align.K3.name: bound(times["k3_bytes"], 2 * 64 * times["k3_pairs"],
-                             INT8_TC_OPS_PER_S),
+                             peaks.INT8_TC_OPS_PER_S),
     }
     k3_a, k4_qn = times["k3"]["a"], times["k4"]["query_nearest"]
     timed = {fused.K1.name: (k1_err, times["k1_ms"], times["k1_plain_ms"]),

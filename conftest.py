@@ -11,6 +11,16 @@ collects: ``make -C tvidz_tpu/decode/_native`` for the reference's and
 ``build/tvidz_tpu_torch/``). Both are no-ops when the library is current,
 nothing is built when ``pkg-config`` does not find libav, and a lock file
 under ``build/`` keeps concurrent runs from building at once.
+
+With xdist workers it also gives each worker its share of the cores,
+``max(1, cores // workers)``, through the standard ``OMP_NUM_THREADS`` and
+``MKL_NUM_THREADS``: torch's intra-op pool, OpenMP and the BLAS read them
+when they load. Without them each worker's pools span the whole machine, and
+the workers' threads crowd each other off the cores. The controlling
+process sets them before it starts the workers, since pytest's plugins
+import numpy (and with it the BLAS) in a worker before any conftest runs;
+every process a test starts inherits them. A value the environment already
+sets is kept, and a run without xdist is left as it is.
 """
 
 import fcntl
@@ -29,7 +39,14 @@ def _libav_present() -> bool:
 
 
 def pytest_configure(config):
-    if hasattr(config, "workerinput") or not _libav_present():
+    if hasattr(config, "workerinput"):
+        return
+    workers = config.getoption("numprocesses", None)    # None without xdist
+    if workers:
+        share = str(max(1, len(os.sched_getaffinity(0)) // workers))
+        for name in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+            os.environ.setdefault(name, share)
+    if not _libav_present():
         return
     lock_dir = os.path.join(_ROOT, "build")
     os.makedirs(lock_dir, exist_ok=True)
