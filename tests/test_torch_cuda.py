@@ -701,6 +701,54 @@ def test_fragment_search_host_copies_do_not_wait_for_the_stream(dev):
     assert card.locate_fragments(queries, top_k=10) == want
 
 
+def test_evidence_holds_a_removal_queued_between_two_queries(dev, monkeypatch):
+    """2^20 rows on the card: the first query's pull runs a removal of its
+    matched video while its K4 is still queued behind ~0.1 s of the card's
+    clock, so the evidence read comes after the removal; it counts the rows
+    as they were scanned, and the second query counts them after the
+    removal. Each equals the CPU corpus's answer on the same sequence, and
+    the removal copied the video table once."""
+    from tvidz_tpu_torch.corpus import device_corpus
+    from test_torch_vid_snapshot import armed, cow_count
+
+    DeviceCorpus = device_corpus.DeviceCorpus
+    rng = np.random.default_rng(19)
+    rows, videos = 1 << 20, 256
+    fps = rng.integers(0, 2 ** 32, (rows, 2), dtype=np.uint32)
+    card, cpu = (DeviceCorpus(words=2, device=d, fp_initial_capacity=rows)
+                 for d in (dev, "cpu"))
+    per = rows // videos
+    for v in range(videos):
+        for c in (card, cpu):
+            c.append_fingerprints(v, fps[v * per:(v + 1) * per])
+    q = np.concatenate([fps[7 * per + 100:7 * per + 164],
+                        fps[200 * per + 9:200 * per + 73]])
+    q[::3, 1] ^= np.uint32(0b101)                   # 2 bits off every third
+    want = [cpu.nearest_video_counts(q)]
+    cpu.remove_video(7)
+    want.append(cpu.nearest_video_counts(q))
+    assert want[0] == {7: 64, 200: 64}
+    assert 7 not in want[1] and want[1][200] == 64
+    card.nearest_video_counts(q)                    # the mirror's first sync
+    stream = torch.cuda.current_stream()
+
+    def remove(c):
+        assert not stream.query(), "K4 ran before the removal"
+        c.remove_video(7)
+
+    def queued(q_dev, fp_dev, orig=device_corpus.corpus_query_nearest):
+        torch.cuda._sleep(200_000_000)      # after the queries' placement
+        return orig(q_dev, fp_dev)
+
+    cows = cow_count()
+    with monkeypatch.context() as m, armed(card, remove) as fired:
+        m.setattr(device_corpus, "corpus_query_nearest", queued)
+        got = [card.nearest_video_counts(q)]
+    got.append(card.nearest_video_counts(q))
+    assert fired and got == want
+    assert cow_count() - cows == 1
+
+
 def test_phash256_analyze_on_the_card(dev, monkeypatch):
     """A model under phash256 on the card: the family's composition (no K1
     launch), the same cuts and fingerprints within 8 bits of the CPU's."""

@@ -20,10 +20,22 @@ is unchanged, in full after growth or compaction:
   (``pallas_fragment_dispatch``) has no counterpart: on CUDA a K3 build or
   launch failure raises.
 
+The rows' host video table (``_fp_vid``) is read by reference: a query
+takes the array and its row count under the lock and reads its argmin rows'
+vids after the lock is released, as they were when K4 scanned them. No
+write changes a row below a held count in the array a query holds: appends
+write at the count and above, and growth, ``reset`` and restore put a new
+array in place. The two writers in place (``remove_video``'s tombstone and
+the compaction) first put a copy in place whenever a query has taken the
+current array since it was made (``_fp_vid_shared``): a copy on write,
+span ``corpus.vid_cow`` (attr ``bytes``), whose row in the span table
+counts the copies.
+
 Spans (``utils.timing``): ``nearest_video_counts`` is ``corpus.lock`` (the
-wait for the corpus lock), ``corpus.vid_copy`` (the host copy of the rows'
-video table, attr ``bytes``), ``corpus.k4`` (the mirror's sync and K4's
-launch), ``corpus.pull`` and ``corpus.evidence`` (the host count);
+wait for the corpus lock), ``corpus.vid_copy`` (taking the rows' video
+table, by reference: attr ``bytes``, the bytes copied, 0), ``corpus.k4``
+(the mirror's sync and K4's launch), ``corpus.pull`` and
+``corpus.evidence`` (the host count);
 ``locate_fragments`` is a ``locate`` span over ``corpus.lock``,
 ``locate.place``, ``locate.launch`` (bucket syncs and K3 launches),
 ``locate.copy`` (the results' host copies queued behind them),
@@ -147,6 +159,7 @@ class DeviceCorpus:
         self._fp_cap = self._fp_initial_capacity
         self._fp = np.full((self._fp_cap, self.words), _FP_SENTINEL, np.uint32)
         self._fp_vid = np.full(self._fp_cap, -1, np.int32)
+        self._fp_vid_shared = False   # a query may hold self._fp_vid
         self._fp_count = 0
         self._fp_dev: Optional[torch.Tensor] = None
         self._fp_synced_count = 0
@@ -247,6 +260,7 @@ class DeviceCorpus:
             frames = np.nonzero(
                 self._fp_vid[: self._fp_count] == video_id)[0]
             if frames.size:
+                self._own_fp_vid_locked()
                 self._fp_vid[frames] = -1
                 self._fp[frames] = _FP_SENTINEL
                 self._fp_dirty_cols.extend(int(f) for f in frames)
@@ -379,6 +393,7 @@ class DeviceCorpus:
             return
         keep = np.nonzero(self._fp_vid[: self._fp_count] >= 0)[0]
         new_count = int(keep.size)
+        self._own_fp_vid_locked()
         self._fp[:new_count] = self._fp[keep]
         self._fp[new_count : self._fp_count] = _FP_SENTINEL
         self._fp_vid[:new_count] = self._fp_vid[keep]
@@ -387,6 +402,20 @@ class DeviceCorpus:
         self._fp_tombstones = 0
         self._fp_dirty_cols.clear()
         self._fp_full_resync = True
+
+    def _own_fp_vid_locked(self) -> None:
+        """Before a write in place below the row count: a copy of the video
+        table in place of the one a query may still read (module note)."""
+        if self._fp_vid_shared:
+            with span("corpus.vid_cow", bytes=self._fp_vid.nbytes):
+                self._fp_vid = self._fp_vid.copy()
+            self._fp_vid_shared = False
+
+    def _take_fp_vid_locked(self) -> np.ndarray:
+        """The video table, by reference, for a query to read after the
+        lock is released (module note)."""
+        self._fp_vid_shared = True
+        return self._fp_vid
 
     def _grow_fp(self, min_cap: Optional[int] = None) -> None:
         """Double capacity until >= min_cap in ONE allocation; capacity
@@ -399,6 +428,7 @@ class DeviceCorpus:
         vid = np.full(new_cap, -1, np.int32)
         vid[: self._fp_count] = self._fp_vid[: self._fp_count]
         self._fp, self._fp_vid = fp, vid
+        self._fp_vid_shared = False
         self._fp_cap = new_cap
         self._fp_full_resync = True
 
@@ -537,12 +567,12 @@ class DeviceCorpus:
             if self._fp_count == 0 or query.shape[0] == 0:
                 return []
             self._sync_fp()
-            fp_vid = self._fp_vid[: self._fp_count].copy()
+            fp_vid = self._take_fp_vid_locked()
             count_n = self._fp_count
             frame_min = self._frame_min(self._padded_queries(query),
                                         self._fp_dev)
         matched = frame_min[:count_n].cpu().numpy() <= self.hamming_threshold
-        vids_matched = fp_vid[matched]
+        vids_matched = fp_vid[:count_n][matched]
         if vids_matched.size == 0:
             return []
         uniq, cnt = np.unique(vids_matched, return_counts=True)
@@ -568,8 +598,8 @@ class DeviceCorpus:
             if self._fp_count == 0 or query.shape[0] == 0:
                 return {}
             count_n = self._fp_count
-            with span("corpus.vid_copy", bytes=4 * count_n):
-                fp_vid = self._fp_vid[:count_n].copy()
+            with span("corpus.vid_copy", bytes=0):
+                fp_vid = self._take_fp_vid_locked()
             with span("corpus.k4"):
                 self._sync_fp()
                 q_min, q_arg = self._query_nearest(
