@@ -34,8 +34,8 @@ counts the copies.
 Spans (``utils.timing``): ``nearest_video_counts`` is ``corpus.lock`` (the
 wait for the corpus lock), ``corpus.vid_copy`` (taking the rows' video
 table, by reference: attr ``bytes``, the bytes copied, 0), ``corpus.k4``
-(the mirror's sync and K4's launch), ``corpus.pull`` and
-``corpus.evidence`` (the host count);
+(the mirror's sync and K4's launch; attr ``words``, the row width),
+``corpus.pull`` and ``corpus.evidence`` (the host count);
 ``locate_fragments`` is a ``locate`` span over ``corpus.lock``,
 ``locate.place``, ``locate.launch`` (bucket syncs and K3 launches),
 ``locate.copy`` (the results' host copies queued behind them),
@@ -600,7 +600,7 @@ class DeviceCorpus:
             count_n = self._fp_count
             with span("corpus.vid_copy", bytes=0):
                 fp_vid = self._take_fp_vid_locked()
-            with span("corpus.k4"):
+            with span("corpus.k4", words=self.words):
                 self._sync_fp()
                 q_min, q_arg = self._query_nearest(
                     self._padded_queries(query), self._fp_dev)

@@ -30,7 +30,10 @@ hashes from ``ops/hashes``, in plain torch on any device
 (``fingerprint_family_block``, ``fingerprint_family_blocks_batched``).
 ``fingerprint_block`` and ``fingerprint_blocks_batched`` take the
 configuration (``algorithm``, ``dct_size``, ``hash_size``) and go one way
-or the other by it alone (``uses_k1``).
+or the other by it alone (``uses_k1``). The family's pass is a span,
+``fingerprint.family`` (``utils.timing``; attrs ``algorithm``, ``frames``,
+the K·T frames it hashes, and ``words``): on CUDA its wall is the host's
+launch of the pass, whose device work the dispatcher's pull waits for.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from tvidz_tpu_torch.ops.scene import (
     scene_scores_block,
     scene_scores_blocks,
 )
+from tvidz_tpu_torch.utils.timing import span
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -315,10 +319,13 @@ def fingerprint_family_block(luma: torch.Tensor, carry: FingerprintCarry,
     if luma.ndim != 3 or luma.shape[0] == 0:
         raise ValueError(f"luma must be (T, H, W) with T >= 1, got {tuple(luma.shape)}")
     _check_valid_t(valid_t, luma.shape[0])
-    x = luma.to(torch.float32)
-    scores, scene_carry = scene_scores_block(x, carry.scene, valid_t=valid_t)
-    return (scores, family_hashes(x, algorithm, dct_size, hash_size),
-            FingerprintCarry(scene=scene_carry))
+    with span("fingerprint.family", algorithm=algorithm,
+              frames=luma.shape[0]) as sp:
+        x = luma.to(torch.float32)
+        scores, scene_carry = scene_scores_block(x, carry.scene, valid_t=valid_t)
+        fps = family_hashes(x, algorithm, dct_size, hash_size)
+        sp.note(words=fps.shape[-1])
+    return scores, fps, FingerprintCarry(scene=scene_carry)
 
 
 def fingerprint_family_blocks_batched(lumas, carries, valid_ts, *, algorithm: str,
@@ -326,12 +333,17 @@ def fingerprint_family_blocks_batched(lumas, carries, valid_ts, *, algorithm: st
     """K streams' blocks of such a configuration in one pass: scene scores
     over the K streams at once (``scene_scores_blocks``), the hashes of all
     K·T frames in one batch, as the reference's batched program."""
-    x = torch.stack(list(lumas)).to(torch.float32)
-    k, t, h, w = x.shape
+    lumas = list(lumas)
+    k, t, h, w = len(lumas), *lumas[0].shape
     for v in valid_ts:
         _check_valid_t(v, t)
-    scores, scene = scene_scores_blocks(x, [c.scene for c in carries], valid_ts)
-    fps = family_hashes(x.reshape(k * t, h, w), algorithm, dct_size, hash_size)
+    with span("fingerprint.family", algorithm=algorithm, frames=k * t) as sp:
+        x = torch.stack(lumas).to(torch.float32)
+        scores, scene = scene_scores_blocks(x, [c.scene for c in carries],
+                                            valid_ts)
+        fps = family_hashes(x.reshape(k * t, h, w), algorithm, dct_size,
+                            hash_size)
+        sp.note(words=fps.shape[-1])
     return (scores, fps.reshape(k, t, -1),
             tuple(FingerprintCarry(scene=c) for c in scene))
 
